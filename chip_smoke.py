@@ -1,20 +1,33 @@
 """GPU smoke run of torcwa_tpu_torch: build, check and time the eig kernels
-and drive the Example-1 sweep (order 6, 8 wavelengths, grid 256, float32)
-forward and backward through them on one CUDA card.
+and drive the port's two main paths on one CUDA card, forward and backward:
+the Example-1 sweep (order 6, 8 wavelengths, grid 256, float32) through the
+batched small-n kernels, and one order-(20, 20) solve (2N = 3362) through
+the large-n route.
 
     python3 chip_smoke.py
 
 Phases (each prints its results; any failure exits non-zero):
   1. environment: versions, card, power limit, nvcc; IEEE f32 pinned
   2. build: nvcc the kernels in torcwa_tpu_torch/csrc
-  3. each kernel against its plain PyTorch version on the card, on random
-     complex64 matrices (B=2, n=48) and on the order-6 wave matrices
-     A = P Q (B=8, n=338) built by the port's own pq_pair
-  4. the slice: launch counts of the main path, |t_xx|^2 and the raster
-     gradient against a complex128 torch.linalg.eig oracle at 0, 0.2 and
-     10 degrees, at order 6 and at order 10 (2N = 882, one wavelength)
-  5. times with CUDA events (median of 5 after a warm-up)
-  6. torch.profiler over one sweep: device time by kernel, idle share
+  3. each small-route kernel against its plain PyTorch version on the card,
+     on random complex64 matrices (B=2, n=48) and on the order-6 wave
+     matrices A = P Q (B=8, n=338) built by the port's own pq_pair
+  4. the large-route kernels against their plain versions: the multishift
+     QR at n = 300 and 640, the slab products, the blocked vectors and the
+     blocked Hessenberg reduction at n = 640, the NaN contract
+  5. the order-6 slice: launch counts of the main path, |t_xx|^2 and the
+     raster gradient against a complex128 torch.linalg.eig oracle at 0, 0.2
+     and 10 degrees, at order 6 and at order 10 (2N = 882, one wavelength,
+     which takes the large route)
+  6. the order-20 slice: the three stages alone on A = P Q, two sweeps and
+     the blocked vectors against their plain versions at this size, one
+     fwd+grad with launch counts, |t_xx|^2 and the 10-degree raster gradient
+     against the complex128 oracle; then normal incidence (degenerate mode
+     pairs): the multishift QR converges and the forward |t_xx|^2 agrees
+     with the oracle
+  7. times with CUDA events; the two routes at n = 338, 578 and 882
+  8. torch.profiler over one order-6 sweep and one order-20 solve: device
+     time by kernel, idle share
 The line before the last is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}.  Needs no JAX and no network.
 """
@@ -38,16 +51,36 @@ LAMS = np.linspace(400., 700., 8)
 # gradient checks: float32 resolves the mode pairs from this tilt on
 WELL_POSED_DEG = 10.
 
+# the order-20 solve: one wavelength, one matrix
+ORDER_L = (20, 20)
+LAM_L = np.array([500.])
+
 REPLACES = {
     'hessenberg': 'torcwa_tpu/ops/eig_qr_pallas.py:889',
     'schur_qr': 'torcwa_tpu/ops/eig_qr_pallas.py:351',
     'tri_vectors': 'torcwa_tpu/ops/eig_qr_pallas.py:768',
+    'schur_ms': 'torcwa_tpu/ops/eig_qr_hbm.py:266',
+    'tri_vectors_blocked': 'torcwa_tpu/ops/vec_blocked.py:34',
 }
-SOURCES = {
-    'hessenberg': 'torcwa_tpu_torch/csrc/hessenberg.cu',
-    'schur_qr': 'torcwa_tpu_torch/csrc/schur_qr.cu',
-    'tri_vectors': 'torcwa_tpu_torch/csrc/tri_vectors.cu',
-}
+SOURCES = {k: f'torcwa_tpu_torch/csrc/{k}.cu' for k in REPLACES}
+# sizes of the large-route kernel checks on random matrices
+N_MID, N_BIG, N_SLAB = 300, 640, 3362
+SMALL = ('hessenberg', 'schur_qr', 'tri_vectors')
+LARGE = ('schur_ms', 'tri_vectors_blocked')
+
+# NVIDIA H100 SXM data sheet: device memory rate and the IEEE float32 rate
+# outside the tensor cores (no TF32)
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
+C64 = 8                                  # bytes of a complex64
+
+
+def bound(nbytes, flops):
+    """(bound_ms, bound_by): the least time the card could take for work
+    that must move `nbytes` (inputs read once, outputs written once) and
+    do `flops` float32 operations."""
+    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3
+    return (tb, 'bytes') if tb >= tf else (tf, 'operations')
 
 
 FAILURES = []
@@ -214,7 +247,8 @@ def kernel_checks(torch, ek, A, label, record, elementwise):
           f'(separated columns {int(sep.sum())}/{sep.numel()}: {ev_sep:.2e}),'
           f' residual kernel {r_k:.2e} plain {r_p:.2e}')
     record.update(hess=float(drec.max()), qr=ewp, vec=ev, vec_sep=ev_sep,
-                  ey=ey, r_k=r_k, r_p=r_p, qr_plain_ms=qr_plain_ms)
+                  ey=ey, r_k=r_k, r_p=r_p, qr_plain_ms=qr_plain_ms,
+                  sweeps=sw.tolist())
     return H, Q, T
 
 
@@ -239,6 +273,24 @@ def fwd_grad(torch, tp, eps, lams, order, inc, backend):
     T = slice_loss(torch, tp, er, lams, order, inc, backend)
     T.mean().backward()
     return T.detach(), er.grad
+
+
+def fwd_bwd_ms(torch, tp, eps, lams, order, inc, backend, reps=3):
+    """Median milliseconds (forward, backward) of `reps` fwd+grad runs,
+    each split by a CUDA event between the loss and its backward."""
+    fw, bw = [], []
+    for _ in range(reps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        er = eps.detach().clone().requires_grad_(True)
+        ev[0].record()
+        T = slice_loss(torch, tp, er, lams, order, inc, backend)
+        ev[1].record()
+        T.mean().backward()
+        ev[2].record()
+        ev[2].synchronize()
+        fw.append(ev[0].elapsed_time(ev[1]))
+        bw.append(ev[1].elapsed_time(ev[2]))
+    return statistics.median(fw), statistics.median(bw)
 
 
 def cosine(a, b):
@@ -311,7 +363,7 @@ def profile_sweep(torch, tp, eps32):
     kern = [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in kern) / 1e3
-    ours = [e for e in kern if any(k + '_kernel' in e.key for k in REPLACES)]
+    ours = [e for e in kern if any(k + '_kernel' in e.key for k in SMALL)]
     eig_ms = sum(e.self_device_time_total for e in ours) / 1e3
     n_other = sum(e.count for e in kern) - sum(e.count for e in ours)
     print(f'  wall per sweep (no profiler, mean of 3) {wall_ms:.3f} ms; '
@@ -322,8 +374,361 @@ def profile_sweep(torch, tp, eps32):
                     reverse=True)[:12]:
         print(f'  {e.self_device_time_total / 1e3:10.3f} ms x{e.count:5d}  '
               f'{e.key[:100]}')
-    check(len(ours) == len(REPLACES), 'the profile shows the three eig '
+    check(len(ours) == len(SMALL), 'the profile shows the three eig '
           'kernels')
+
+
+def rand_c64(torch, n, seed, dev, scale=0.3):
+    rng = np.random.default_rng(seed)
+    a = rng.standard_normal((n, n)) + 1j * rng.standard_normal((n, n))
+    return torch.as_tensor((scale * a).astype(np.complex64), device=dev)
+
+
+def schur_quality(torch, A, T, Z):
+    """(||Z T Z^H - A||_F / ||A||_F, max|Z^H Z - I|, strictly lower part
+    of T all zero)."""
+    eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
+    res = float(torch.linalg.matrix_norm(Z @ T @ Z.mH - A)
+                / torch.linalg.matrix_norm(A))
+    return res, float((Z.mH @ Z - eye).abs().max()), \
+        bool((torch.tril(T, -1) == 0).all())
+
+
+def plain_blocked_vectors(torch, vb, T, block):
+    """tri_vectors_blocked with the plain in-block recurrence."""
+    n = T.shape[-1]
+    dmin = vb.pivot_floor(T)
+    Y = torch.eye(n, dtype=T.dtype, device=T.device)
+    for r1 in range(n, 0, -block):
+        r0 = max(r1 - block, 0)
+        vb.tri_vectors_block_plain(T, T[r0:r1, r1:] @ Y[r1:], dmin, Y, r0, r1)
+    return Y
+
+
+def separated(torch, w, rel=1e-3):
+    """Columns whose eigenvalue is farther than rel x spectral radius from
+    every other: there the back substitution is well conditioned."""
+    gap = (w[:, None] - w[None, :]).abs()
+    gap = gap + torch.eye(w.shape[-1], device=w.device) * 1e30
+    return gap.amin(-1) > rel * w.abs().amax()
+
+
+def large_kernel_checks(torch, ek, dev):
+    """Phase 4: the kernels of the large-n route against their plain
+    versions on random complex64 matrices."""
+    from torcwa_tpu_torch.ops import (eig_qr as eq, schur_ms as sm,
+                                      vec_blocked as vb)
+    from torcwa_tpu_torch.ops.hess_blocked import hessenberg_blocked
+
+    # n = 300: wb = 128 advancing by 64, so that several chase windows
+    # overlap; kernels and plain version run the same sweep logic
+    A = rand_c64(torch, N_MID, 300, dev)
+    H, Q = hessenberg_blocked(A, panel=32)
+    cfg = dict(m=8, kw=24, wb=128)
+    T, Z, st = sm.schur_ms(H, Q, return_stats=True, **cfg)
+    t0 = time.perf_counter()
+    Tp, Zp, stp = sm.schur_ms_plain(H, Q, return_stats=True, **cfg)
+    torch.cuda.synchronize()
+    print(f'-- schur_ms n={N_MID} {cfg}: kernels (hi, sweeps, aed, skipped) '
+          f'{st[:4]}, plain {stp[:4]} in {time.perf_counter() - t0:.1f} s')
+    w, wp = torch.diagonal(T), torch.diagonal(Tp)
+    rho = float(wp.abs().max())
+    d = max(nearest_err(w, wp), nearest_err(wp, w)) / rho
+    res, orth, tri = schur_quality(torch, A, T, Z)
+    resp, orthp, _ = schur_quality(torch, A, Tp, Zp)
+    print(f'  eigenvalue sets differ by {d:.2e} of the spectral radius; '
+          f'residual kernels {res:.2e} plain {resp:.2e}; unitarity '
+          f'{orth:.2e} / {orthp:.2e}')
+    check(st[0] == 0 and stp[0] == 0, f'schur_ms n={N_MID}: both converged')
+    check(d <= 1e-4, f'schur_ms n={N_MID}: kernels == plain eigenvalues <= 1e-4')
+    check(res <= 1e-5 and orth <= 1e-5 and tri,
+          f'schur_ms n={N_MID}: Schur residual and unitarity <= 1e-5, T '
+          'triangular')
+    check(0.5 * stp[1] <= st[1] <= 2 * stp[1] and st[2] > N_MID // 2,
+          f'schur_ms n={N_MID}: sweeps within 2x of plain, AED deflates most')
+
+    # n = 640 at the main path's settings.  The plain version is not run
+    # here: its ~1e5 small launches take minutes at this size (it is held
+    # against the kernels at n = 300 above and for two sweeps at n = 3362
+    # in phase 6); the kernels are held against complex128 LAPACK instead
+    A = rand_c64(torch, N_BIG, 640, dev)
+    H1, Q1 = ek.hessenberg(A[None].contiguous())
+    H, Q = hessenberg_blocked(A)
+    rec = float((Q @ H @ Q.mH - Q1[0] @ H1[0] @ Q1[0].mH).abs().max())
+    hres = float(torch.linalg.matrix_norm(Q @ H @ Q.mH - A)
+                 / torch.linalg.matrix_norm(A))
+    eye = torch.eye(N_BIG, dtype=A.dtype, device=dev)
+    horth = float((Q.mH @ Q - eye).abs().max())
+    print(f'-- hessenberg_blocked n={N_BIG}: residual {hres:.2e}, unitarity '
+          f'{horth:.2e}, max|QHQ^H - (QHQ^H)_kernel| = {rec:.2e}')
+    check(hres <= 1e-5 and horth <= 1e-5 and
+          rec <= 1e-5 * float(torch.linalg.matrix_norm(A)) and
+          bool((torch.tril(H, -2) == 0).all()),
+          f'hessenberg_blocked n={N_BIG} agrees with the batched kernel '
+          '(gauge-free) within 1e-5')
+    m = eq.large_shifts(N_BIG)
+    T, Z, st = sm.schur_ms(H, Q, m=m, defl_mult=eq.LARGE_DEFL_MULT,
+                           return_stats=True)
+    w = torch.diagonal(T).to(torch.complex128)
+    w_ref = torch.linalg.eigvals(A.to(torch.complex128))
+    d = max(nearest_err(w, w_ref), nearest_err(w_ref, w)) \
+        / float(w_ref.abs().max())
+    res, orth, tri = schur_quality(torch, A, T, Z)
+    print(f'-- schur_ms n={N_BIG} as the route calls it (m={m}, kw={sm.AED_KW}, '
+          f'wb={sm.window(m)}; plain version skipped: minutes at this size): '
+          f'(hi, sweeps, aed, skipped) {st[:4]}; '
+          f'eigenvalues vs complex128 {d:.2e}; residual {res:.2e}; '
+          f'unitarity {orth:.2e}')
+    check(st[0] == 0 and d <= 1e-4 and res <= 1e-5 and orth <= 1e-5 and tri,
+          f'schur_ms n={N_BIG}: converged, eigenvalues <= 1e-4, residual and '
+          'unitarity <= 1e-5')
+    Y = vb.tri_vectors_blocked(T)
+    Yp = plain_blocked_vectors(torch, vb, T, vb.MAX_BLOCK)
+    Y1 = ek.tri_vectors(T[None].contiguous())[0]
+    sep = separated(torch, torch.diagonal(T))
+    scale = float(Yp.abs().max())
+    e_p = float(((Y - Yp).abs().amax(0) * sep).max()) / scale
+    e_1 = float(((Y - Y1).abs().amax(0) * sep).max()) / scale
+    print(f'-- tri_vectors_blocked n={N_BIG}: vs plain {e_p:.2e}, vs the '
+          f'batched kernel {e_1:.2e} (relative, {int(sep.sum())} separated '
+          f'columns of {N_BIG})')
+    check(e_p <= 1e-4 and e_1 <= 1e-4,
+          f'tri_vectors_blocked n={N_BIG} == plain == batched kernel <= 1e-4')
+
+    # the slab products at the main path's shapes: n = 3362, the chase
+    # window's unitary and an AED transform of a window cut to the active
+    # block (at most kw = 64)
+    X = rand_c64(torch, N_SLAB, 7, dev)
+    worst = 0.
+    for wdt, a in ((sm.window(eq.large_shifts(N_SLAB)), N_SLAB // 3),
+                   (sm.AED_KW, N_SLAB - 361), (61, N_SLAB - 200)):
+        P = rand_c64(torch, wdt, wdt, dev)
+        ref = X.clone()
+        ref[a:a + wdt, a + wdt:] = P @ X[a:a + wdt, a + wdt:]
+        got = sm.ms_apply_left(X.clone(), a, a + wdt, N_SLAB, P)
+        worst = max(worst, float((got - ref).abs().max() / ref.abs().max()))
+        ref = X.clone()
+        ref[:, a:a + wdt] = X[:, a:a + wdt] @ P.mH
+        got = sm.ms_apply_right(X.clone(), 0, N_SLAB, a, P)
+        worst = max(worst, float((got - ref).abs().max() / ref.abs().max()))
+    print(f'-- ms_apply_left/right vs torch.matmul: {worst:.2e} relative')
+    check(worst <= 1e-5, 'slab products == torch.matmul within 1e-5')
+
+    A = rand_c64(torch, N_MID, 301, dev)
+    H, Q = hessenberg_blocked(A)
+    T1, _, st1 = sm.schur_ms(H, Q, budget=1, return_stats=True, **cfg)
+    check(st1[0] > 0 and bool(torch.isnan(torch.diagonal(T1)).all()),
+          'schur_ms with a budget of 1 sweep: NaN eigenvalues')
+
+
+def exact_eig_loss(torch, tp, eps, lams, order, inc):
+    """fwd+grad of the float32 pipeline with its eig taken in complex128
+    (an exact eig of the float32 A): the floor of any float32
+    eigensolver."""
+    from torcwa_tpu_torch.ops import eig as eig_mod
+
+    def exact(A, backend):
+        w, V = torch.linalg.eig(A.to(torch.complex128))
+        return w.to(A.dtype), V.to(A.dtype)
+
+    keep = eig_mod._forward
+    eig_mod._forward = exact
+    try:
+        return fwd_grad(torch, tp, eps, lams, order, inc, 'torch')
+    finally:
+        eig_mod._forward = keep
+
+
+def order20_slice(torch, tp, ek, dev, out):
+    """Phase 6: the order-(20, 20) solve through the large-n route."""
+    from torcwa_tpu_torch.ops import (eig_qr as eq, schur_ms as sm,
+                                      vec_blocked as vb)
+    from torcwa_tpu_torch.ops.hess_blocked import hessenberg_blocked
+    inc = math.radians(WELL_POSED_DEG)
+    eps, A = wave_matrices(torch, tp, ORDER_L, LAM_L, inc, torch.float32, dev)
+    A = A[0].contiguous()
+    n = A.shape[-1]
+    m = eq.large_shifts(n)
+    cfg = dict(m=m, defl_mult=eq.LARGE_DEFL_MULT)
+    print(f'-- A = P Q at order {ORDER_L}, {LAM_L[0]} nm, {WELL_POSED_DEG} '
+          f'deg: n = {n}, schur_ms with {cfg}, kw = {sm.AED_KW}, wb = '
+          f'{sm.window(m)} advancing by {sm.ALIGN}')
+    H, Q = hessenberg_blocked(A)
+    hres = float(torch.linalg.matrix_norm(Q @ H @ Q.mH - A)
+                 / torch.linalg.matrix_norm(A))
+    T, Z, st = sm.schur_ms(H, Q, return_stats=True, **cfg)
+    res, orth, tri = schur_quality(torch, A, T, Z)
+    print(f'  hessenberg_blocked residual {hres:.2e}; schur_ms (hi, sweeps, '
+          f'aed-deflated, skipped chases) {st[:4]}, {st[4]:.3e} flops done '
+          f'for {st[5]:.3e} needed; '
+          f'Schur residual {res:.2e}, unitarity {orth:.2e}')
+    check(st[0] == 0 and tri, 'order 20: schur_ms converged, T triangular')
+    # float32 round-off of ~2000 slab products through Z: 1e-4, not 1e-5
+    check(hres <= 1e-5 and res <= 1e-4 and orth <= 1e-4,
+          'order 20: Hessenberg residual <= 1e-5, Schur residual and '
+          'unitarity <= 1e-4')
+    Y = vb.tri_vectors_blocked(T)
+    w = torch.diagonal(T)
+    V = Z @ Y
+    V = V / torch.linalg.vector_norm(V, dim=-2, keepdim=True)
+    amax = float(A.abs().max())
+    r0 = float((A @ V - V * w).abs().max()) / amax
+    w2, V2 = w[None], V[None]
+    steps, gap = eq.REFINE
+    for _ in range(steps):
+        w2, V2 = eq._refine(A[None], w2, V2, gap)
+    r1 = float((A @ V2[0] - V2[0] * w2[0]).abs().max()) / amax
+    w_ref = torch.linalg.eigvals(A.to(torch.complex128))
+    rho = float(w_ref.abs().max())
+    ew = max(nearest_err(w2[0].to(torch.complex128), w_ref),
+             nearest_err(w_ref, w2[0].to(torch.complex128))) / rho
+    print(f'  eigen-residual max|A V - V w| / max|A|: {r0:.2e} before, '
+          f'{r1:.2e} after {steps} refinement steps; '
+          f'eigenvalues vs complex128 torch.linalg.eig {ew:.2e} of the '
+          f'spectral radius')
+    check(ew <= 1e-4, 'order 20: eigenvalues within 1e-4 of the spectral '
+          'radius of the complex128 oracle')
+    check(r1 <= 1e-4, 'order 20: eigen-residual after refinement <= 1e-4')
+
+    # two sweeps in place, kernels against the plain version, from the
+    # same H, Q.  Round-off may flip a deflation decision, so the two are
+    # compared gauge-free: each result is a unitary similarity of A in
+    # Hessenberg form, and the eigenvalues both have deflated agree
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    Hk, Zk, Hp, Zp = H.clone(), Q.clone(), H.clone(), Q.clone()
+    ev[0].record()
+    sk = sm.run_sweeps(Hk, Zk, 2, **cfg)
+    ev[1].record()
+    ev[2].record()
+    sp = sm.run_sweeps(Hp, Zp, 2, plain=True, **cfg)
+    ev[3].record()
+    ev[3].synchronize()
+    out['ms2'] = (ev[0].elapsed_time(ev[1]), ev[2].elapsed_time(ev[3]))
+    out['need2'] = sk[5]
+    rk, ok_, _ = schur_quality(torch, A, Hk, Zk)
+    rp, op_, _ = schur_quality(torch, A, Hp, Zp)
+    nd = n - 1 - max(sk[0], sp[0])
+    dw = nearest_err(torch.diagonal(Hk)[n - nd:],
+                     torch.diagonal(Hp)[n - nd:]) if nd else 0.
+    print(f'  two sweeps at n = {n}: kernels {out["ms2"][0]:.1f} ms, plain '
+          f'{out["ms2"][1]:.1f} ms; (hi, sweeps, aed, skipped) kernels '
+          f'{sk[:4]} plain {sp[:4]}; residual {rk:.2e} / {rp:.2e}, '
+          f'unitarity {ok_:.2e} / {op_:.2e}; the {nd} eigenvalues both '
+          f'deflated differ by {dw:.2e}')
+    check(abs(sk[0] - sp[0]) <= 8 and sk[1] == sp[1] == 2,
+          'order 20, two sweeps: kernels and plain deflate the same count '
+          '(within 8)')
+    # Q of the blocked reduction is unitary to ~1.5e-5 at this size, so
+    # the kernels are held to the plain version's own figures
+    check(rk <= 2 * rp + 1e-6 and ok_ <= 2 * op_ + 1e-6 and rk <= 1e-5 and
+          bool((torch.tril(Hk, -2) == 0).all()) and dw <= 1e-4 * rho,
+          'order 20, two sweeps: the kernels keep a unitary similarity in '
+          'Hessenberg form (residual 1e-5, unitarity on par with the plain '
+          'version) and deflate the plain version\'s eigenvalues (1e-4)')
+    out['err_ms'] = dw
+    del Hk, Zk, Hp, Zp
+    # the blocked vectors against their plain version at this size
+    Yp = plain_blocked_vectors(torch, vb, T, vb.MAX_BLOCK)
+    sep = separated(torch, w)
+    ey = float(((Y - Yp).abs().amax(0) * sep).max()) / float(Yp.abs().max())
+    print(f'  tri_vectors_blocked vs plain at n = {n}: {ey:.2e} relative on '
+          f'{int(sep.sum())} separated columns')
+    check(ey <= 1e-4, 'order 20: tri_vectors_blocked == plain <= 1e-4')
+    out['err_vec'] = ey
+    out.update(A=A, H=H, Q=Q, T=T, Z=Z, need=st[5], eps=eps, n=n, cfg=cfg)
+
+    # the slice itself
+    ek.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    T_k, g_k = fwd_grad(torch, tp, eps, LAM_L, ORDER_L, inc, 'kernels')
+    torch.cuda.synchronize()
+    out['launches'] = dict(ek.LAUNCHES)
+    out['peak_gb'] = torch.cuda.max_memory_allocated() / 1e9
+    print(f'  launches on the order-20 path: {out["launches"]}; peak memory '
+          f'{out["peak_gb"]:.3f} GB')
+    for k in LARGE:
+        check(out['launches'][k] > 0, f'{k} launched on the order-20 path')
+    for k in SMALL:
+        check(out['launches'][k] == 0, f'{k} not launched at order 20')
+    T_o, g_o = fwd_grad(torch, tp, eps.double(), LAM_L, ORDER_L, inc, 'torch')
+    T_l, g_l = fwd_grad(torch, tp, eps, LAM_L, ORDER_L, inc, 'torch')
+    T_e, g_e = exact_eig_loss(torch, tp, eps, LAM_L, ORDER_L, inc)
+    dT = float((T_k.double() - T_o).abs().max())
+    cos_k, cos_l, cos_e = (cosine(g, g_o) for g in (g_k, g_l, g_e))
+    print(f'  |t_xx|^2: kernels {T_k.tolist()} oracle {T_o.tolist()} '
+          f'torch.linalg.eig complex64 {T_l.tolist()} exact eig of the '
+          f'float32 A {T_e.tolist()}')
+    print(f'  raster-gradient cosine vs the complex128 oracle: kernels '
+          f'{cos_k:.6f}, torch.linalg.eig complex64 {cos_l:.6f}, exact eig '
+          f'of the float32 A {cos_e:.6f}')
+    check(dT <= 1e-4, f'order 20: |t_xx|^2 vs oracle {dT:.2e} <= 1e-4')
+    check(bool(torch.isfinite(g_k).all()), 'order 20: gradient finite')
+    check(cos_k >= 0.99, f'order 20: raster gradient cosine {cos_k:.6f} '
+          f'>= 0.99')
+    del T_o, g_o, T_l, g_l, T_e, g_e
+
+    # normal incidence, the bench workload's own: the modes come in
+    # degenerate pairs.  Forward only (the gradient there is ill posed in
+    # any eigensolver)
+    _, A0 = wave_matrices(torch, tp, ORDER_L, LAM_L, 0., torch.float32, dev)
+    A0 = A0[0].contiguous()
+    H0, Q0 = hessenberg_blocked(A0)
+    T0, Z0, st0 = sm.schur_ms(H0, Q0, return_stats=True, **cfg)
+    res0, orth0, tri0 = schur_quality(torch, A0, T0, Z0)
+    print(f'  0 deg: max|Im A| / max|A| = '
+          f'{float(A0.imag.abs().max() / A0.abs().max()):.1e}; schur_ms '
+          f'(hi, sweeps, aed-deflated, skipped chases) {st0[:4]}; Schur '
+          f'residual {res0:.2e}, unitarity {orth0:.2e}')
+    check(st0[0] == 0 and tri0 and res0 <= 1e-4 and orth0 <= 1e-4,
+          'order 20, 0 deg: schur_ms converged, Schur residual and '
+          'unitarity <= 1e-4')
+    del A0, H0, Q0, T0, Z0
+    with torch.no_grad():
+        T_k0 = slice_loss(torch, tp, eps, LAM_L, ORDER_L, 0., 'kernels')
+        T_o0 = slice_loss(torch, tp, eps.double(), LAM_L, ORDER_L, 0.,
+                          'torch')
+        T_l0 = slice_loss(torch, tp, eps, LAM_L, ORDER_L, 0., 'torch')
+    dT0 = float((T_k0.double() - T_o0).abs().max())
+    print(f'  0 deg |t_xx|^2: kernels {T_k0.tolist()} oracle {T_o0.tolist()} '
+          f'torch.linalg.eig complex64 {T_l0.tolist()}')
+    check(bool(torch.isfinite(T_k0).all()) and dT0 <= 1e-4,
+          f'order 20, 0 deg: |t_xx|^2 vs oracle {dT0:.2e} <= 1e-4')
+
+
+def profile_order20(torch, tp, eps):
+    """torch.profiler over one order-20 fwd+grad: device time by kernel and
+    the idle share of the unprofiled wall."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    inc = math.radians(WELL_POSED_DEG)
+
+    def solve():
+        fwd_grad(torch, tp, eps, LAM_L, ORDER_L, inc, 'kernels')
+        torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    solve()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        solve()
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kern) / 1e3
+    ms_k = sum(e.self_device_time_total for e in kern
+               if '::ms_' in e.key) / 1e3
+    print(f'  order-20 solve: wall (no profiler) {wall_ms:.1f} ms; device '
+          f'kernels {busy:.1f} ms (idle {1 - busy / wall_ms:.3f} of the '
+          f'wall) in {sum(e.count for e in kern)} launches; the schur_ms '
+          f'functions {ms_k:.1f} ms; sweeps of this solve (ms_aed launches) '
+          f'{sum(e.count for e in kern if "ms_aed" in e.key)}')
+    for e in sorted(kern, key=lambda e: e.self_device_time_total,
+                    reverse=True)[:14]:
+        print(f'  {e.self_device_time_total / 1e3:10.3f} ms x{e.count:5d}  '
+              f'{e.key[:100]}')
+    check(any('ms_chase' in e.key for e in kern)
+          and any('tri_vectors_block_kernel' in e.key for e in kern),
+          'the order-20 profile shows the large-route kernels')
 
 
 def main():
@@ -334,10 +739,12 @@ def main():
     import torcwa_tpu_torch as tp
     from torcwa_tpu_torch._constants import (f32_precision_pinned,
                                              pin_f32_precision)
-    from torcwa_tpu_torch.ops import _build, eig_kernels as ek
+    from torcwa_tpu_torch.ops import (_build, eig_kernels as ek,
+                                      eig_qr as eq, schur_ms as sm,
+                                      vec_blocked as vb)
     from torcwa_tpu_torch.ops.eig_kernels import (hessenberg_plain,
-                                                  schur_qr_plain,
                                                   tri_vectors_plain)
+    from torcwa_tpu_torch.ops.hess_blocked import hessenberg_blocked
     dev = torch.device('cuda', 0)
     torch.manual_seed(0)
 
@@ -365,7 +772,7 @@ def main():
         if 'registers' in line or 'spill' in line or 'Compiling' in line:
             print('  ptxas:', line.strip())
 
-    phase('3. kernels against their plain versions')
+    phase('3. small-route kernels against their plain versions')
     rng = np.random.default_rng(0)
     A_rand = torch.as_tensor(
         (rng.standard_normal((2, 48, 48))
@@ -389,7 +796,10 @@ def main():
     check(rec_main['r_k'] <= 10 * rec_main['r_p'] + 1e-6,
           'tri_vectors kernel eigen-residual on par with the plain version')
 
-    phase('4. the slice (order 6, 8 wavelengths, grid 256, float32)')
+    phase('4. large-route kernels against their plain versions')
+    large_kernel_checks(torch, ek, dev)
+
+    phase('5. the order-6 slice (8 wavelengths, grid 256, float32)')
     eps32, _ = wave_matrices(torch, tp, (6, 6), LAMS[:1], 0., torch.float32,
                              dev)
     eps64 = eps32.double()
@@ -397,9 +807,10 @@ def main():
     T_k, g_k = fwd_grad(torch, tp, eps32, LAMS, (6, 6), 0., 'kernels')
     torch.cuda.synchronize()
     launches = dict(ek.LAUNCHES)
-    print(f'  launches on the main path: {launches}')
-    for k, v in launches.items():
-        check(v > 0, f'{k} kernel launched on the main path ({v})')
+    print(f'  launches on the order-6 path: {launches}')
+    for k in SMALL:
+        check(launches[k] > 0, f'{k} kernel launched on the order-6 path '
+              f'({launches[k]})')
     T_o, _ = fwd_grad(torch, tp, eps64, LAMS, (6, 6), 0., 'torch')
     dT = float((T_k.double() - T_o).abs().max())
     print(f'  |t_xx|^2 kernels {T_k.tolist()}')
@@ -411,7 +822,14 @@ def main():
         grad_checks(torch, tp, eps32, LAMS[3:4], (10, 10), tilt_deg)
     check(f32_precision_pinned(), 'IEEE f32 still pinned after the slice')
 
-    phase('5. times (CUDA events, median of 5 after one warm-up)')
+    phase('6. the order-20 slice (2N = 3362, one wavelength, grid 256, '
+          'float32, 10 deg)')
+    o20 = {}
+    order20_slice(torch, tp, ek, dev, o20)
+    launches.update({k: o20['launches'][k] for k in LARGE})
+    check(f32_precision_pinned(), 'IEEE f32 still pinned after order 20')
+
+    phase('7. times (CUDA events, median after one warm-up)')
     print(f'card: {smi}')
     n_lam = len(LAMS)
     ms_k = cuda_ms(torch, lambda: fwd_grad(torch, tp, eps32, LAMS, (6, 6),
@@ -423,32 +841,139 @@ def main():
     print(f'  order-6 fwd+grad, torch.linalg.eig ORACLE (complex64): '
           f'{ms_o / n_lam / 1e3:.6f} s/solve [{smi}]')
     A6c = A6.contiguous()
-    times = {}
+    B6, n6 = A6c.shape[0], A6c.shape[-1]
+    lib6 = cuda_ms(torch, lambda: torch.linalg.eig(A6c), reps=3)
+    times, bounds = {}, {}
     times['hessenberg'] = (cuda_ms(torch, lambda: ek.hessenberg(A6c)),
                            cuda_ms(torch, lambda: hessenberg_plain(A6c)),
                            'B=8 n=338')
+    # A read, H and Q written; zgehrd + zunghr: (5/3 + 2/3) n^3 complex
+    # multiply-adds of 8 flops
+    bounds['hessenberg'] = bound(3 * B6 * n6 * n6 * C64,
+                                 B6 * (7 / 3) * n6 ** 3 * 8)
     times['schur_qr'] = (cuda_ms(torch, lambda: ek.schur_qr(H6, Q6)),
                          rec_main['qr_plain_ms'],
                          'B=8 n=338; plain: one run, in phase 3')
+    # H, Q read, T, Z written; this run's sweeps per lane, a sweep chasing
+    # a window that shrinks from n to 0 (n/2 rotations on average), a
+    # rotation updating ~2n element pairs (rows of H, columns of H and Z)
+    # of 20 flops
+    bounds['schur_qr'] = bound(4 * B6 * n6 * n6 * C64,
+                               sum(rec_main['sweeps']) * (n6 / 2) * 2 * n6
+                               * 20)
     times['tri_vectors'] = (cuda_ms(torch, lambda: ek.tri_vectors(T6)),
                             cuda_ms(torch, lambda: tri_vectors_plain(T6)),
                             'B=8 n=338')
-    for k, (tk, tpl, shape) in times.items():
-        print(f'  {k}: kernel {tk:.3f} ms, plain {tpl:.3f} ms ({shape}) '
-              f'[{smi}]')
+    # T read, Y written; n^3/6 complex multiply-adds
+    bounds['tri_vectors'] = bound(2 * B6 * n6 * n6 * C64,
+                                  B6 * n6 ** 3 / 6 * 8)
 
-    phase('6. profile of one order-6 fwd+grad sweep (torch.profiler)')
+    nL, cfgL = o20['n'], o20['cfg']
+    A20, H20, Q20, T20 = o20['A'], o20['H'], o20['Q'], o20['T']
+    inc = math.radians(WELL_POSED_DEG)
+    ms_20f, ms_20b = fwd_bwd_ms(torch, tp, o20['eps'], LAM_L, ORDER_L, inc,
+                                'kernels')
+    ms_20 = ms_20f + ms_20b
+    ms_eig = cuda_ms(torch, lambda: eq.eig_qr(A20), reps=3)
+    ms_hess = cuda_ms(torch, lambda: hessenberg_blocked(A20), reps=1)
+    ms_ms = cuda_ms(torch, lambda: sm.schur_ms(H20, Q20, **cfgL), reps=3)
+    ms_vecs = cuda_ms(torch, lambda: vb.tri_vectors_blocked(T20), reps=3)
+    wv = torch.diagonal(T20)[None]
+    Vv = (o20['Z'] @ vb.tri_vectors_blocked(T20))[None]
+    Vv = Vv / torch.linalg.vector_norm(Vv, dim=-2, keepdim=True)
+    ms_ref = cuda_ms(torch, lambda: eq._refine(A20[None], wv, Vv,
+                                               eq.REFINE[1]), reps=3)
+    lib20 = cuda_ms(torch, lambda: torch.linalg.eig(A20), reps=1)
+    ms_20l = cuda_ms(torch, lambda: fwd_grad(torch, tp, o20['eps'], LAM_L,
+                                             ORDER_L, inc, 'torch'), reps=1)
+    print(f'  order-20 fwd+grad, eig kernels: {ms_20 / 1e3:.6f} s/solve '
+          f'(medians of 3 after the check run: forward {ms_20f / 1e3:.6f} '
+          f's, backward {ms_20b / 1e3:.6f} s; eig_qr alone, median of 3, '
+          f'{ms_eig / 1e3:.6f} s, which leaves '
+          f'{(ms_20f - ms_eig) / 1e3:.6f} s for conv + tail + Redheffer, a '
+          f'difference of two host-paced medians) [{smi}]')
+    print(f'  order-20 eig stages at n = {nL}: hessenberg_blocked '
+          f'{ms_hess:.1f} ms, schur_ms {ms_ms:.1f} ms, tri_vectors_blocked '
+          f'(27 kernels + 27 GEMMs) {ms_vecs:.1f} ms, one refinement step '
+          f'{ms_ref:.1f} ms [{smi}]')
+    print(f'  order-20 library figure: torch.linalg.eig complex64 on the '
+          f'same matrix {lib20:.1f} ms (covers all three stages); fwd+grad '
+          f'with it {ms_20l / 1e3:.6f} s/solve; order-6: torch.linalg.eig '
+          f'complex64 on the (8, 338, 338) batch {lib6:.1f} ms (covers all '
+          f'three stages) [{smi}]')
+    print(f'  order-20 fwd+grad peak memory {o20["peak_gb"]:.3f} GB [{smi}]')
+    # the record holds one piece of work throughout: the first two sweeps
+    # from the same H, Q (phase 6), which the plain version can be timed
+    # on; the whole Schur form stands beside it.  H and Z read and written;
+    # the operations are schur_ms's flops needed: this run's rotations
+    # applied directly and its AED transforms, whatever the windowing
+    times['schur_ms'] = (o20['ms2'][0], o20['ms2'][1],
+                         f'n={nL}, the first two sweeps')
+    bounds['schur_ms'] = bound(4 * nL * nL * C64, o20['need2'])
+    full_bound = bound(4 * nL * nL * C64, o20['need'])
+    print(f'  schur_ms, the whole Schur form at n = {nL}: kernel {ms_ms:.3f} '
+          f'ms, bound {full_bound[0]:.4f} ms by {full_bound[1]} '
+          f'({o20["need"]:.3e} flops needed), plain not run [{smi}]')
+    # the in-block kernel alone over all row blocks, S precomputed
+    dmin = vb.pivot_floor(T20)
+    blocks = [(max(r1 - vb.MAX_BLOCK, 0), r1)
+              for r1 in range(nL, 0, -vb.MAX_BLOCK)]
+    Yv = vb.tri_vectors_blocked(T20)
+    Ss = [(T20[r0:r1, r1:] @ Yv[r1:]).contiguous() for r0, r1 in blocks]
+
+    def all_blocks(fn):
+        Y = torch.eye(nL, dtype=T20.dtype, device=dev)
+        for (r0, r1), S in zip(blocks, Ss):
+            fn(T20, S, dmin, Y, r0, r1)
+
+    times['tri_vectors_blocked'] = (
+        cuda_ms(torch, lambda: all_blocks(vb.tri_vectors_block), reps=3),
+        cuda_ms(torch, lambda: all_blocks(vb.tri_vectors_block_plain),
+                reps=1), f'n={nL}, the {len(blocks)} in-block launches')
+    # per block: the p x p triangle of T and S read, the rows of Y right
+    # of the diagonal written; p^2/2 multiply-adds per column
+    vb_bytes = sum(((r1 - r0) ** 2 + (r1 - r0) * nL + (r1 - r0) * (nL - r0))
+                   * C64 for r0, r1 in blocks)
+    vb_flops = sum((r1 - r0) ** 2 / 2 * (nL - r0) * 8 for r0, r1 in blocks)
+    bounds['tri_vectors_blocked'] = bound(vb_bytes, vb_flops)
+    for k, (tk, tpl, shape) in times.items():
+        print(f'  {k}: kernel {tk:.3f} ms, plain {tpl:.3f} ms, bound '
+              f'{bounds[k][0]:.4f} ms by {bounds[k][1]} ({shape}) [{smi}]')
+
+    print('  the two routes of eig_qr on one wave matrix (500 nm, 10 deg), '
+          'median of 3:')
+    keep = eq.LARGE_MIN_N
+    for order in (6, 8, 10):
+        _, Ao = wave_matrices(torch, tp, (order, order), LAM_L, inc,
+                              torch.float32, dev)
+        Ao = Ao.contiguous()
+        eq.LARGE_MIN_N = 10 ** 9
+        t_small = cuda_ms(torch, lambda: eq.eig_qr(Ao), reps=3)
+        eq.LARGE_MIN_N = 0
+        t_large = cuda_ms(torch, lambda: eq.eig_qr(Ao), reps=3)
+        eq.LARGE_MIN_N = keep
+        print(f'    n = {Ao.shape[-1]}: small route {t_small:.1f} ms, large '
+              f'route {t_large:.1f} ms [{smi}]')
+
+    phase('8. profiles (torch.profiler)')
     profile_sweep(torch, tp, eps32)
+    profile_order20(torch, tp, o20['eps'])
 
     if FAILURES:
         print(f'\n{len(FAILURES)} check(s) failed:', *FAILURES, sep='\n  ')
         return 1
     errs = {'hessenberg': rec_main['hess'], 'schur_qr': rec_main['qr'],
-            'tri_vectors': rec_main['vec_sep']}
+            'tri_vectors': rec_main['vec_sep'], 'schur_ms': o20['err_ms'],
+            'tri_vectors_blocked': o20['err_vec']}
     kernels = [{'name': k, 'route': 'cuda', 'source': SOURCES[k],
                 'replaces': REPLACES[k], 'launches': launches[k],
                 'max_abs_err': errs[k], 'ms': times[k][0],
-                'plain_ms': times[k][1]} for k in REPLACES]
+                'plain_ms': times[k][1], 'bound_ms': bounds[k][0],
+                'bound_by': bounds[k][1], 'library_ms': None}
+               for k in REPLACES]
+    kernels[list(REPLACES).index('schur_ms')].update(
+        work='the first two sweeps at n = 3362', full_ms=ms_ms,
+        full_bound_ms=full_bound[0], full_bound_by=full_bound[1])
     print(smi)
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {

@@ -126,3 +126,120 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev, bad):
         ek.hessenberg(A)
     with pytest.raises(err):
         ek.tri_vectors(A)
+
+
+# ---------------------------------------------------------------------------
+# the large-n route: csrc/schur_ms.cu and csrc/tri_vectors_blocked.cu
+# ---------------------------------------------------------------------------
+
+from torcwa_tpu_torch.ops import schur_ms as sm  # noqa: E402
+from torcwa_tpu_torch.ops import vec_blocked as vb  # noqa: E402
+from torcwa_tpu_torch.ops.hess_blocked import hessenberg_blocked  # noqa: E402
+
+# (n, m, kw, wb): one window at n = 96, overlapping windows at 300
+LARGE = [(96, 8, 24, 128), (300, 8, 24, 128)]
+
+
+def _rand1(dev, n, seed, scale=0.3):
+    rng = np.random.default_rng(seed)
+    a = rng.standard_normal((n, n)) + 1j * rng.standard_normal((n, n))
+    return torch.as_tensor((scale * a).astype(np.complex64), device=dev)
+
+
+@pytest.mark.parametrize('side', ['left', 'right'])
+def test_ms_slab_products_match_matmul(dev, side):
+    # one random slab; an AED-sized transform, the route's chase window and
+    # the widest window the kernels take, ragged edges: the FFMA tiles sum
+    # in another order than cuBLAS, 1e-5 relative
+    X = _rand1(dev, 700, 10)
+    for w, a in ((61, 301), (128, 192), (256, 128)):
+        P = _rand1(dev, w, 11)
+        ref, got = X.clone(), X.clone()
+        before = ek.LAUNCHES['schur_ms']
+        if side == 'left':
+            ref[a:a + w, 37:693] = P @ X[a:a + w, 37:693]
+            sm.ms_apply_left(got, a, 37, 693, P)
+        else:
+            ref[5:611, a:a + w] = X[5:611, a:a + w] @ P.mH
+            sm.ms_apply_right(got, 5, 611, a, P)
+        torch.cuda.synchronize()
+        assert ek.LAUNCHES['schur_ms'] == before + 1
+        assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
+@pytest.mark.parametrize('n,m,kw,wb', LARGE)
+def test_schur_ms_kernels_match_plain(dev, n, m, kw, wb):
+    # eigenvalue sets within 1e-4 of the spectral radius, Schur residual and
+    # unitarity at float32 level (1e-5), the same sweep logic on both sides:
+    # sweep counts within a factor of 2
+    A = _rand1(dev, n, n)
+    H, Q = hessenberg_blocked(A, panel=32)
+    before = ek.LAUNCHES['schur_ms']
+    T, Z, st = sm.schur_ms(H, Q, m=m, kw=kw, wb=wb, return_stats=True)
+    torch.cuda.synchronize()
+    assert ek.LAUNCHES['schur_ms'] > before
+    Tp, Zp, stp = sm.schur_ms_plain(H, Q, m=m, kw=kw, wb=wb,
+                                    return_stats=True)
+    assert st[0] == 0 and stp[0] == 0
+    w, wp = torch.diagonal(T), torch.diagonal(Tp)
+    dist = (w[:, None] - wp[None, :]).abs().amin(-1).amax()
+    assert float(dist) <= 1e-4 * float(wp.abs().max())
+    assert bool((torch.tril(T, -1) == 0).all())
+    fro = torch.linalg.matrix_norm(A)
+    assert float(torch.linalg.matrix_norm(Z @ T @ Z.mH - A) / fro) <= 1e-5
+    eye = torch.eye(n, dtype=A.dtype, device=dev)
+    assert float((Z.mH @ Z - eye).abs().max()) <= 1e-5
+    assert st[2] > n // 2 and stp[2] > n // 2          # AED carries it
+    assert 0.5 * stp[1] <= st[1] <= 2 * stp[1]
+
+
+def test_schur_ms_kernels_poison_on_a_starved_budget(dev):
+    A = _rand1(dev, 96, 3)
+    H, Q = hessenberg_blocked(A, panel=32)
+    T, _, st = sm.schur_ms(H, Q, m=8, kw=24, budget=1, return_stats=True)
+    assert st[0] > 0 and st[1] == 1
+    assert bool(torch.isnan(torch.diagonal(T)).all())
+
+
+@pytest.mark.parametrize('n', [96, 300])
+def test_tri_vectors_blocked_kernel_matches_plain(dev, n):
+    # same T into the kernel, its plain version and the batched kernel of
+    # the small route; distinct random eigenvalues, 1e-4 relative
+    A = _rand1(dev, n, 20 + n)
+    H, Q = hessenberg_blocked(A, panel=32)
+    T, _ = sm.schur_ms(H, Q, m=8, kw=24)
+    before = ek.LAUNCHES['tri_vectors_blocked']
+    Y = vb.tri_vectors_blocked(T, block=64)
+    torch.cuda.synchronize()
+    assert ek.LAUNCHES['tri_vectors_blocked'] == before + -(-n // 64)
+    dmin = vb.pivot_floor(T)
+    Yp = torch.eye(n, dtype=T.dtype, device=dev)
+    for r1 in range(n, 0, -64):
+        r0 = max(r1 - 64, 0)
+        vb.tri_vectors_block_plain(T, T[r0:r1, r1:] @ Yp[r1:], dmin, Yp,
+                                   r0, r1)
+    Y1 = ek.tri_vectors(T[None].contiguous())[0]
+    scale = float(Yp.abs().max())
+    assert float((Y - Yp).abs().max()) <= 1e-4 * scale
+    assert float((Y - Y1).abs().max()) <= 1e-4 * scale
+
+
+def test_large_route_on_the_card_solves_the_eigenproblem(dev, monkeypatch):
+    # eig_qr through hessenberg_blocked -> schur_ms -> tri_vectors_blocked
+    from torcwa_tpu_torch.ops import eig_qr as eq
+    monkeypatch.setattr(eq, 'LARGE_MIN_N', 64)
+    rng = np.random.default_rng(6)
+    a = rng.standard_normal((2, 200, 200)) + 1j * rng.standard_normal(
+        (2, 200, 200))
+    A = torch.as_tensor(a.astype(np.complex64), device=dev)
+    ek.reset_launch_counts()
+    w, V = eq.eig_qr(A)
+    assert ek.LAUNCHES['schur_ms'] > 0
+    assert ek.LAUNCHES['tri_vectors_blocked'] > 0
+    assert ek.LAUNCHES['schur_qr'] == 0
+    res = (A @ V - V * w[..., None, :]).abs().amax((-2, -1))
+    assert bool((res <= 1e-4 * torch.linalg.matrix_norm(A, ord=2)).all())
+    w_ref = torch.linalg.eigvals(A.to(torch.complex128))
+    dist = (w.to(torch.complex128)[..., :, None]
+            - w_ref[..., None, :]).abs().amin(-1).amax(-1)
+    assert bool((dist <= 1e-4 * w_ref.abs().amax(-1)).all())

@@ -126,10 +126,10 @@ def _close_pair_c64(n, seed):
 
 @pytest.mark.parametrize('n', [32, 96])
 def test_kernels_forward_complex64_is_refined(n):
-    # the complex64 QR route ends in one refinement step with a complex128
+    # the complex64 QR route ends in refinement steps with a complex128
     # residual: its eigenvectors match the complex128 eig of the SAME
     # complex64 matrix to 1 - |cos| <= 1e-6 (measured 7.7e-9 at n = 32 and
-    # 1.7e-8 at n = 96; 1.1e-5 and 1.8e-4 without the step), and the
+    # 1.7e-8 at n = 96 after one step; 1.1e-5 and 1.8e-4 without), and the
     # eigen-residual is at the complex64 rounding of V (<= 3e-7 max|A|,
     # measured 3.2e-8)
     A = _close_pair_c64(n, n)

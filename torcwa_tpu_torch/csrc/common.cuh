@@ -1,6 +1,7 @@
 // Shared helpers of the eig kernels: complex64 arithmetic on interleaved
 // float2 (x = real, y = imaginary, the layout of torch.complex64) and
-// block-wide reductions.  Every kernel takes one thread block per matrix.
+// block-wide reductions, and the Givens rotation and Wilkinson shift the QR
+// kernels share.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -66,6 +67,52 @@ __device__ float block_reduce(float v, float* red) {
   const float r = red[32];
   __syncthreads();  // red may be reused right after
   return r;
+}
+
+struct Givens {
+  float c;
+  float2 s;
+};
+
+// [[c, s], [-conj(s), c]] [x; y] = [r; 0], c real.
+__device__ __forceinline__ Givens givens(float2 x, float2 y) {
+  const float ax2 = c_abs2(x), ay2 = c_abs2(y);
+  const float dn = sqrtf(ax2 + ay2);
+  const float ax = sqrtf(ax2);
+  const float safe_dn = dn > 0.f ? dn : 1.f;
+  const float safe_ax = ax > 0.f ? ax : 1.f;
+  Givens g;
+  g.c = dn > 0.f ? ax / safe_dn : 1.f;
+  const float den = safe_ax * safe_dn;
+  const bool both = (ax > 0.f) && (dn > 0.f);
+  g.s.x = both ? (x.x * y.x + x.y * y.y) / den : 0.f;
+  g.s.y = both ? (x.y * y.x - x.x * y.y) / den : 0.f;
+  if (ax2 == 0.f && ay2 > 0.f) {
+    g.c = 0.f;
+    g.s = c_make(1.f, 0.f);
+  }
+  return g;
+}
+
+// Eigenvalue of [[a, b], [c, d]] closest to d, with the stall-gated sign
+// of the discriminant's imaginary part.
+__device__ __forceinline__ float2 wilkinson(float2 a, float2 b, float2 c,
+                                            float2 d, bool stalled) {
+  const float trr = a.x + d.x, tri = a.y + d.y;
+  const float detr = (a.x * d.x - a.y * d.y) - (b.x * c.x - b.y * c.y);
+  const float deti = (a.x * d.y + a.y * d.x) - (b.x * c.y + b.y * c.x);
+  const float qr = (trr * trr - tri * tri) - 4.f * detr;
+  const float qi = 2.f * trr * tri - 4.f * deti;
+  const float qmag = sqrtf(qr * qr + qi * qi);
+  const float dscr = sqrtf(fmaxf((qmag + qr) * 0.5f, 0.f));
+  const bool cplx_ok = (qi != 0.f) || stalled;
+  const float sgn = cplx_ok ? (qi >= 0.f ? 1.f : -1.f) : 0.f;
+  const float dsci = sgn * sqrtf(fmaxf((qmag - qr) * 0.5f, 0.f));
+  const float l1r = (trr + dscr) * 0.5f, l1i = (tri + dsci) * 0.5f;
+  const float l2r = (trr - dscr) * 0.5f, l2i = (tri - dsci) * 0.5f;
+  const float e1 = (l1r - d.x) * (l1r - d.x) + (l1i - d.y) * (l1i - d.y);
+  const float e2 = (l2r - d.x) * (l2r - d.x) + (l2i - d.y) * (l2i - d.y);
+  return e1 < e2 ? c_make(l1r, l1i) : c_make(l2r, l2i);
 }
 
 // Allow more than 48 KB of dynamic shared memory when a size needs it.

@@ -1,0 +1,656 @@
+// Windowed multishift Schur QR with aggressive early deflation (AED) for ONE
+// large upper Hessenberg matrix: H = Z T Z^H, H and Z in device memory.
+//
+// Replaces the TPU kernel torcwa_tpu/ops/eig_qr_hbm.py::_kernel_hbm (public
+// entry schur_qr_hbm) with its _mini_schur, and keeps its rules:
+//  * band scan: subdiagonal k is dead when |h_k+1,k| <= max(defl_mult eps
+//    (|h_kk| + |h_k+1,k+1|), 1e-31); the active block [lo, hi] is the
+//    bottom-most alive run at or above the previous window bottom;
+//  * AED on the trailing window of at most kw rows: a single-shift Schur
+//    form of the window (Wilkinson shift, an exceptional shift every 13th
+//    iteration, deflation at eps (|d| + |d'|), budget 3 kw + 40), the spike
+//    beta Q[:, 0], the bottom run of converged lanes with |spike_i| <=
+//    defl_mult eps max(|T_ii|, max|W|) deflates, the rest is reduced back
+//    to Hessenberg form by Householder reflectors;
+//  * shifts: the m undeflated window eigenvalues closest to the new corner,
+//    deflated lanes last; on an exceptional sweep the perturbed trailing
+//    undeflated diagonals;
+//  * chase: m spacing-2 single-shift bulges through overlapping diagonal
+//    windows; bulge i sits at row k = t - 2 i at step t and enters at
+//    k = lo with (H[lo,lo] - sigma_i, H[lo+1,lo]).
+// The sweep loop (nibble rule, stall counter, window schedule, budget) runs
+// on the host in ops/schur_ms.py, which launches the functions below once
+// or a few times per sweep and reads `info` back once per sweep.
+//
+// Not carried over, because they exist only for the TPU's compiler: the
+// padding to multiples of 128, the (1, T, 128) band layout, the one-hot
+// selection matmuls, the split-real pairs and Z^T storage, the deferred
+// invariant M = B U^T with its local chase block and parked-bump mask.
+// Rotations are applied to H directly, so bulges simply stay in H between
+// windows; H, Z and the small unitaries are complex64, row-major.
+//
+// Design for an H100:
+//  * ms_band_scan: one block; two integer max-reductions over the band.
+//  * ms_aed: one block, the window W, its Schur vectors, the bordered
+//    matrix [spike | T] and the accumulated transform in shared memory
+//    (~133 KB at kw = 64).  It writes the transformed diagonal block and
+//    spike column back to H itself, with the known zeros exact, and the
+//    kwe x kwe transform Lp for the off-diagonal slabs.
+//  * ms_chase: one block per window; a window of up to 169 rows is staged
+//    in shared memory for the chase and written back at its end, a wider
+//    one is worked in device memory.  At a step the m rotations touch
+//    disjoint row pairs and disjoint column pairs and their parameters are
+//    known from the step before, so all row rotations (H window and the
+//    window's accumulated unitary U) run in parallel, then all column
+//    rotations: three barriers per step.  Row rotations cover columns
+//    >= max(k - 1, lo) only, so that a bump created by a trailing bulge is
+//    never smeared by the bulge ahead of it.
+//  * ms_apply_left / ms_apply_right: the small unitary times a slab of H
+//    or Z, in place, as a tiled complex GEMM in IEEE f32 FFMA: a block owns
+//    a strip of 32 columns (rows), stages it in shared memory, accumulates
+//    in registers and writes it back.
+//
+// What bounds it on an H100: the chase runs in one block, so on one SM's
+// path to the L2 cache: worked in device memory a step moves ~m (2 wb x
+// 32 B in the row phase + wb x 128 B in the column phase, whose 16-byte
+// accesses fetch whole 32-byte sectors), ~0.5 MB at m = 24, wb = 128, and
+// takes ~9 us; keeping more loads in flight per thread changed nothing.
+// Hence the narrow window staged in shared memory, which leaves U's rows
+// (m wb x 32 B a step) as the traffic; a cluster per window is later work.
+// AED is the serial mini-Schur in one block; the slab products are the
+// only throughput part (~2 n wb^2 complex multiply-adds per window).
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int kScanThreads = 1024;
+constexpr int kAedThreads = 128;
+constexpr int kChaseThreads = 1024;
+constexpr size_t kMaxChaseSmem = 225 * 1024;  // dynamic, beside ~2 KB static
+constexpr int kGemmThreads = 256;
+constexpr int kMaxM = 64;     // shifts per sweep
+constexpr int kMaxKw = 64;    // AED window
+constexpr int kMaxW = 256;    // order of a slab transform (chase window)
+constexpr int kStrip = 32;    // columns (rows) of a slab per block
+constexpr int kKT = 8;        // depth of a staged tile of the transform
+
+// info[]: what the host reads back once per sweep
+enum { I_LO = 0, I_HI, I_S, I_KWE, I_HINEW, I_KU, I_HIM, I_MINI_IT, I_COUNT };
+
+__device__ __forceinline__ int block_max_int(int v, int* red) {
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  const int nw = (blockDim.x + 31) >> 5;
+  for (int o = 16; o > 0; o >>= 1)
+    v = max(v, __shfl_xor_sync(0xffffffffu, v, o));
+  if (lane == 0) red[wid] = v;
+  __syncthreads();
+  if (wid == 0) {
+    int t = lane < nw ? red[lane] : 0;
+    for (int o = 16; o > 0; o >>= 1)
+      t = max(t, __shfl_xor_sync(0xffffffffu, t, o));
+    if (lane == 0) red[32] = t;
+  }
+  __syncthreads();
+  const int r = red[32];
+  __syncthreads();
+  return r;
+}
+
+__device__ __forceinline__ bool sub_alive(float2 d0, float2 d1, float2 sub,
+                                          float mult) {
+  const float th = fmaxf(mult * TORCWA_EPS_F32 *
+                             (sqrtf(c_abs2(d0)) + sqrtf(c_abs2(d1))),
+                         TORCWA_SMLNUM_F32);
+  return c_abs2(sub) > th * th;
+}
+
+// ---------------------------------------------------------------------------
+// band scan
+// ---------------------------------------------------------------------------
+
+__global__ void __launch_bounds__(kScanThreads)
+ms_band_scan(const float2* __restrict__ H, int n, int hi_top, float defl_mult,
+             int* __restrict__ info) {
+  __shared__ int red[33];
+  const int tid = threadIdx.x;
+  auto alive = [&](int c) {  // subdiagonal H[c+1, c]
+    return sub_alive(H[(size_t)c * n + c], H[(size_t)(c + 1) * n + c + 1],
+                     H[(size_t)(c + 1) * n + c], defl_mult);
+  };
+  int best = 0;
+  for (int c = tid; c < hi_top; c += kScanThreads)
+    if (alive(c)) best = max(best, c + 1);
+  const int hi = block_max_int(best, red);
+  best = 0;
+  for (int g = tid + 1; g <= hi; g += kScanThreads)
+    if (!alive(g - 1)) best = max(best, g);
+  const int lo = block_max_int(best, red);
+  if (tid == 0) {
+    info[I_LO] = lo;
+    info[I_HI] = hi;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// aggressive early deflation
+// ---------------------------------------------------------------------------
+
+__global__ void __launch_bounds__(kAedThreads)
+ms_aed(float2* __restrict__ H, int n, int* __restrict__ info, int exc, int m,
+       int kw, float defl_mult, float2* __restrict__ Lp,
+       float2* __restrict__ shifts) {
+  extern __shared__ float2 sm[];
+  const int ld = kw, ld1 = kw + 1;
+  float2* W = sm;                     // window, then its Schur factor T
+  float2* Qm = W + kw * kw;           // T = Qm W Qm^H
+  float2* Ap = Qm + kw * kw;          // [[0, 0], [spike, T]], (kw+1)^2
+  float2* L = Ap + ld1 * ld1;         // reflectors . diag(1, Qm)
+  float2* spike = L + ld1 * ld1;      // kw
+  float2* v = spike + kw;             // kw + 1
+  __shared__ float red[33];
+  __shared__ int s_mhi, s_mlo, s_ku;
+  __shared__ float2 s_x, s_y;
+  __shared__ unsigned char defl[kMaxKw];
+
+  const int tid = threadIdx.x;
+  const int lo = info[I_LO], hi = info[I_HI];
+  if (hi <= 0) {
+    if (tid == 0) {
+      info[I_S] = 0; info[I_KWE] = 0; info[I_HINEW] = 0; info[I_KU] = 0;
+      info[I_HIM] = 0; info[I_MINI_IT] = 0;
+    }
+    return;
+  }
+  const int s = max(hi - kw + 1, lo + 1);
+  const int kwe = hi - s + 1;
+  const int K1 = kwe + 1;
+
+  float wmax = 0.f;
+  for (int e = tid; e < kwe * kwe; e += kAedThreads) {
+    const int i = e / kwe, j = e % kwe;
+    const float2 h = H[(size_t)(s + i) * n + s + j];
+    W[i * ld + j] = h;
+    Qm[i * ld + j] = c_make(i == j ? 1.f : 0.f, 0.f);
+    wmax = fmaxf(wmax, c_abs2(h));
+  }
+  const float smax = fmaxf(sqrtf(block_reduce<true>(wmax, red)),
+                           TORCWA_SMLNUM_F32);
+  const float2 beta = H[(size_t)s * n + s - 1];
+
+  // ---- single-shift Schur form of the window, Qm accumulated ----
+  const int max_it = 3 * kw + 40;
+  int it = 0, mhi = kwe - 1;
+  while (true) {
+    if (tid == 0) {
+      auto alive = [&](int c) {
+        return sub_alive(W[c * ld + c], W[(c + 1) * ld + c + 1],
+                         W[(c + 1) * ld + c], 1.f);
+      };
+      int h = mhi;
+      while (h > 0 && !alive(h - 1)) --h;
+      int l = h;
+      while (l > 0 && alive(l - 1)) --l;
+      s_mhi = h;
+      s_mlo = l;
+      if (h > 0) {
+        const float2 a = W[(h - 1) * ld + h - 1], b = W[(h - 1) * ld + h];
+        const float2 c = W[h * ld + h - 1], d = W[h * ld + h];
+        float2 sh = wilkinson(a, b, c, d, true);
+        if (it % 13 == 12) sh = c_make(d.x + 0.75f * sqrtf(c_abs2(c)), d.y);
+        s_x = c_sub(W[l * ld + l], sh);
+        s_y = W[(l + 1) * ld + l];
+      }
+    }
+    __syncthreads();
+    mhi = s_mhi;
+    const int mlo = s_mlo;
+    if (mhi <= 0 || it >= max_it) break;
+    for (int k = mlo; k < mhi; ++k) {
+      const Givens g = givens(s_x, s_y);
+      const float c = g.c;
+      const float2 sg = g.s;
+      // rows k, k+1 of W (columns >= k-1) and of Qm
+      for (int idx = tid; idx < 2 * kwe; idx += kAedThreads) {
+        float2* X = idx < kwe ? W : Qm;
+        const int j = idx < kwe ? idx : idx - kwe;
+        if (idx < kwe && j < k - 1) continue;
+        const float2 hk = X[k * ld + j], h1 = X[(k + 1) * ld + j];
+        X[k * ld + j] = c_add(c_scale(c, hk), c_mul(sg, h1));
+        X[(k + 1) * ld + j] = c_sub(c_scale(c, h1), c_cmul(sg, hk));
+        if (idx < kwe && j == k - 1 && k > mlo)
+          X[(k + 1) * ld + j] = c_make(0.f, 0.f);
+      }
+      __syncthreads();
+      // columns k, k+1 of W, rows <= min(k+2, mhi)
+      const int imax = min(k + 2, mhi);
+      for (int i = tid; i <= imax; i += kAedThreads) {
+        const float2 l = W[i * ld + k], r = W[i * ld + k + 1];
+        const float2 nl = c_add(c_scale(c, l), c_cmul(sg, r));
+        W[i * ld + k] = nl;
+        W[i * ld + k + 1] = c_sub(c_scale(c, r), c_mul(sg, l));
+        if (i == k + 1) {
+          s_x = nl;
+          if (k + 2 > mhi) s_y = c_make(0.f, 0.f);
+        }
+        if (i == k + 2) s_y = nl;
+      }
+      __syncthreads();
+    }
+    ++it;
+  }
+
+  // ---- spike, deflatable lanes, undeflated count ku ----
+  for (int i = tid; i < kwe; i += kAedThreads) {
+    const float2 sp = c_mul(beta, Qm[i * ld]);
+    spike[i] = sp;
+    const float td = sqrtf(c_abs2(W[i * ld + i]));
+    defl[i] = (sqrtf(c_abs2(sp)) <= defl_mult * TORCWA_EPS_F32 *
+                                        fmaxf(td, smax)) && (i >= mhi);
+  }
+  __syncthreads();
+  if (tid == 0) {
+    int ku = kwe;
+    while (ku > 0 && defl[ku - 1]) --ku;
+    s_ku = ku;
+    // shifts
+    const int kum1 = max(ku - 1, 0);
+    if (exc) {
+      for (int i = 0; i < m; ++i) {
+        const int pos = min(max(ku - m + i, 0), kum1);
+        const float2 d = W[pos * ld + pos];
+        shifts[i] = c_make(d.x + 0.75f * sqrtf(c_abs2(spike[pos])), d.y);
+      }
+    } else {
+      // the m lanes closest to the new corner, undeflated lanes first,
+      // ties and the lanes >= ku in index order
+      const float2 cn = W[kum1 * ld + kum1];
+      unsigned long long taken = 0ull;
+      float2 last = cn;
+      for (int i = 0; i < m; ++i) {
+        int pick = -1;
+        float best = 0.f;
+        for (int q = 0; q < ku; ++q) {
+          if ((taken >> q) & 1ull) continue;
+          const float dq = c_abs2(c_sub(W[q * ld + q], cn));
+          if (pick < 0 || dq < best) { pick = q; best = dq; }
+        }
+        if (pick < 0)
+          for (int q = ku; q < kwe; ++q)
+            if (!((taken >> q) & 1ull)) { pick = q; break; }
+        if (pick >= 0) {
+          taken |= 1ull << pick;
+          last = W[pick * ld + pick];
+        }
+        shifts[i] = last;
+      }
+    }
+  }
+  __syncthreads();
+  const int ku = s_ku;
+
+  // ---- bordered matrix and L = diag(1, Qm) ----
+  for (int e = tid; e < K1 * K1; e += kAedThreads) {
+    const int r = e / K1, c = e % K1;
+    float2 a = c_make(0.f, 0.f), l = c_make(r == c ? 1.f : 0.f, 0.f);
+    if (r > 0 && c > 0) {
+      a = W[(r - 1) * ld + c - 1];
+      l = Qm[(r - 1) * ld + c - 1];
+    } else if (r > 0) {
+      a = defl[r - 1] ? c_make(0.f, 0.f) : spike[r - 1];
+      l = c_make(0.f, 0.f);
+    }
+    Ap[r * ld1 + c] = a;
+    L[r * ld1 + c] = l;
+  }
+  __syncthreads();
+
+  // ---- Householder reduction of rows/columns 1..ku back to Hessenberg ----
+  for (int j = 0; j + 2 <= ku; ++j) {
+    float sigma = 0.f;
+    for (int r = j + 2; r <= ku; ++r) sigma += c_abs2(Ap[r * ld1 + j]);
+    const float2 x1 = Ap[(j + 1) * ld1 + j];
+    const float xn1 = sqrtf(c_abs2(x1));
+    const float2 ph = xn1 > 0.f ? c_scale(1.f / xn1, x1) : c_make(1.f, 0.f);
+    const float normx = sqrtf(sigma + xn1 * xn1);
+    const float vn2 = 2.f * (sigma + xn1 * xn1 + normx * xn1);
+    const float tau = sigma > 0.f ? 2.f / fmaxf(vn2, 1e-30f) : 0.f;
+    for (int r = j + 1 + tid; r <= ku; r += kAedThreads)
+      v[r] = r == j + 1 ? c_add(x1, c_scale(normx, ph)) : Ap[r * ld1 + j];
+    __syncthreads();
+    if (tau != 0.f) {
+      // X <- X - tau v (v^H X) on Ap and L
+      for (int idx = tid; idx < 2 * K1; idx += kAedThreads) {
+        float2* X = idx < K1 ? Ap : L;
+        const int c = idx < K1 ? idx : idx - K1;
+        float2 w = c_make(0.f, 0.f);
+        for (int r = j + 1; r <= ku; ++r)
+          w = c_add(w, c_cmul(v[r], X[r * ld1 + c]));
+        w = c_scale(tau, w);
+        for (int r = j + 1; r <= ku; ++r)
+          X[r * ld1 + c] = c_sub(X[r * ld1 + c], c_mul(v[r], w));
+      }
+      __syncthreads();
+      // Ap <- Ap - tau (Ap v) v^H
+      for (int r = tid; r < K1; r += kAedThreads) {
+        float2 u = c_make(0.f, 0.f);
+        for (int c = j + 1; c <= ku; ++c)
+          u = c_add(u, c_mul(Ap[r * ld1 + c], v[c]));
+        u = c_scale(tau, u);
+        for (int c = j + 1; c <= ku; ++c)
+          Ap[r * ld1 + c] = c_sub(Ap[r * ld1 + c], c_mulc(u, v[c]));
+      }
+    }
+    __syncthreads();
+  }
+
+  // ---- results ----
+  const int hi_new = s + ku - 1;
+  if (hi_new < hi) {
+    // diagonal block and spike column, the known zeros exact: nothing
+    // below the subdiagonal, no subdiagonal in the deflated part
+    for (int e = tid; e < kwe * K1; e += kAedThreads) {
+      const int r = e / K1 + 1, c = e % K1;
+      float2 a = Ap[r * ld1 + c];
+      if (c + 2 <= r || (c + 1 == r && r >= ku + 1)) a = c_make(0.f, 0.f);
+      H[(size_t)(s - 1 + r) * n + s - 1 + c] = a;
+    }
+  }
+  for (int e = tid; e < kwe * kwe; e += kAedThreads)
+    Lp[(e / kwe) * kwe + e % kwe] = L[(e / kwe + 1) * ld1 + e % kwe + 1];
+  if (tid == 0) {
+    info[I_S] = s; info[I_KWE] = kwe; info[I_HINEW] = hi_new;
+    info[I_KU] = ku; info[I_HIM] = mhi; info[I_MINI_IT] = it;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bulge chase through one window
+// ---------------------------------------------------------------------------
+
+// Hw points at the window's top-left entry, with leading dimension ldh:
+// into H itself (ldh = n), or, when `staged`, into a copy of the window
+// in shared memory (ldh = wb + 1) that is written back at the end.
+__global__ void __launch_bounds__(kChaseThreads)
+ms_chase(float2* __restrict__ H, int n, float2* __restrict__ U, int a, int wb,
+         int tcur, int t_end, int lo, int hi, int m,
+         const float2* __restrict__ shifts, float2* __restrict__ xy,
+         int staged) {
+  extern __shared__ float2 sm[];
+  __shared__ float s_c[kMaxM];
+  __shared__ float2 s_s[kMaxM], s_x[kMaxM], s_y[kMaxM];
+  __shared__ unsigned char s_act[kMaxM];
+  const int tid = threadIdx.x;
+  float2* const Hg = H + (size_t)a * n + a;
+  float2* const Hw = staged ? sm : Hg;
+  const int ldh = staged ? wb + 1 : n;
+
+  for (int e = tid; e < wb * wb; e += kChaseThreads) {
+    U[e] = c_make(e / wb == e % wb ? 1.f : 0.f, 0.f);
+    if (staged)
+      sm[(e / wb) * ldh + e % wb] = Hg[(size_t)(e / wb) * n + e % wb];
+  }
+  if (tid < m) {
+    s_x[tid] = xy[tid];
+    s_y[tid] = xy[m + tid];
+  }
+  __syncthreads();
+
+  for (int t = tcur; t <= t_end; ++t) {
+    // ---- the step's rotations ----
+    if (tid < m) {
+      const int i = tid, k = t - 2 * i;
+      const bool valid = lo + 2 * i + 1 <= hi;
+      const bool act = valid && k >= lo && k < hi;
+      s_act[i] = act;
+      if (act) {
+        if (k == lo) {
+          s_x[i] = c_sub(Hw[(lo - a) * ldh + lo - a], shifts[i]);
+          s_y[i] = Hw[(lo + 1 - a) * ldh + lo - a];
+        }
+        const Givens g = givens(s_x[i], s_y[i]);
+        s_c[i] = g.c;
+        s_s[i] = g.s;
+      }
+    }
+    __syncthreads();
+    // ---- rows k, k+1: the window's columns of H, and U ----
+    for (int idx = tid; idx < m * 2 * wb; idx += kChaseThreads) {
+      const int i = idx / (2 * wb), jj = idx % (2 * wb);
+      if (!s_act[i]) continue;
+      const int k = t - 2 * i;
+      const float c = s_c[i];
+      const float2 sg = s_s[i];
+      float2 *pk, *p1;
+      bool zap = false;
+      if (jj < wb) {
+        const int col = a + jj;
+        if (col < max(k - 1, lo)) continue;
+        pk = Hw + (size_t)(k - a) * ldh + jj;
+        p1 = pk + ldh;
+        zap = (col == k - 1) && (k > lo);
+      } else {
+        pk = U + (size_t)(k - a) * wb + (jj - wb);
+        p1 = pk + wb;
+      }
+      const float2 hk = *pk, h1 = *p1;
+      *pk = c_add(c_scale(c, hk), c_mul(sg, h1));
+      *p1 = zap ? c_make(0.f, 0.f) : c_sub(c_scale(c, h1), c_cmul(sg, hk));
+    }
+    __syncthreads();
+    // ---- columns k, k+1: the window's rows of H up to min(k+2, hi) ----
+    for (int idx = tid; idx < m * wb; idx += kChaseThreads) {
+      const int i = idx / wb, r = a + idx % wb;
+      if (!s_act[i]) continue;
+      const int k = t - 2 * i;
+      if (r > min(k + 2, hi)) continue;
+      const float c = s_c[i];
+      const float2 sg = s_s[i];
+      float2* p = Hw + (size_t)(r - a) * ldh + k - a;
+      const float2 l = p[0], rr = p[1];
+      const float2 nl = c_add(c_scale(c, l), c_cmul(sg, rr));
+      p[0] = nl;
+      p[1] = c_sub(c_scale(c, rr), c_mul(sg, l));
+      if (r == k + 1) {
+        s_x[i] = nl;
+        if (k + 2 > hi) s_y[i] = c_make(0.f, 0.f);
+      }
+      if (r == k + 2) s_y[i] = nl;
+    }
+    __syncthreads();
+  }
+  if (staged)
+    for (int e = tid; e < wb * wb; e += kChaseThreads)
+      Hg[(size_t)(e / wb) * n + e % wb] = sm[(e / wb) * ldh + e % wb];
+  if (tid < m) {
+    xy[tid] = s_x[tid];
+    xy[m + tid] = s_y[tid];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// slab products with the small unitary P (w x w, leading dimension ldp)
+// ---------------------------------------------------------------------------
+
+// X[a:a+w, c0:c1] <- P X[a:a+w, c0:c1]; a block owns kStrip columns.
+__global__ void __launch_bounds__(kGemmThreads)
+ms_apply_left(float2* __restrict__ X, int ldx, int a, int w, int c0, int c1,
+              const float2* __restrict__ P, int ldp) {
+  extern __shared__ float2 sm[];
+  float2* Xs = sm;                 // [w][kStrip]
+  float2* Ps = sm + w * kStrip;    // [kKT][w]: Ps[kk][i] = P[i, k0 + kk]
+  const int tid = threadIdx.x, tx = tid % kStrip, ty = tid / kStrip;
+  constexpr int kRowGroups = kGemmThreads / kStrip;       // 8
+  constexpr int kRows = kMaxW / kRowGroups;               // 32 per thread
+  const int cb = c0 + blockIdx.x * kStrip;
+  const int col = cb + tx;
+  for (int e = tid; e < w * kStrip; e += kGemmThreads) {
+    const int k = e / kStrip, j = e % kStrip;
+    Xs[e] = cb + j < c1 ? X[(size_t)(a + k) * ldx + cb + j]
+                        : c_make(0.f, 0.f);
+  }
+  float2 acc[kRows];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) acc[r] = c_make(0.f, 0.f);
+  for (int k0 = 0; k0 < w; k0 += kKT) {
+    __syncthreads();
+    for (int e = tid; e < w * kKT; e += kGemmThreads) {
+      const int i = e / kKT, kk = e % kKT;
+      Ps[kk * w + i] = k0 + kk < w ? P[(size_t)i * ldp + k0 + kk]
+                                   : c_make(0.f, 0.f);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kKT; ++kk) {
+      if (k0 + kk >= w) break;
+      const float2 xv = Xs[(k0 + kk) * kStrip + tx];
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        const int i = ty + kRowGroups * r;
+        if (i < w) acc[r] = c_add(acc[r], c_mul(Ps[kk * w + i], xv));
+      }
+    }
+  }
+  if (col < c1) {
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const int i = ty + kRowGroups * r;
+      if (i < w) X[(size_t)(a + i) * ldx + col] = acc[r];
+    }
+  }
+}
+
+// X[r0:r1, a:a+w] <- X[r0:r1, a:a+w] P^H; a block owns kStrip rows.
+__global__ void __launch_bounds__(kGemmThreads)
+ms_apply_right(float2* __restrict__ X, int ldx, int r0, int r1, int a, int w,
+               const float2* __restrict__ P, int ldp) {
+  extern __shared__ float2 sm[];
+  float2* Xs = sm;                 // [kStrip][w]
+  float2* Ps = sm + kStrip * w;    // [kKT][w]: Ps[kk][j] = conj(P[j, k0+kk])
+  const int tid = threadIdx.x, tx = tid % 32, ty = tid / 32;
+  constexpr int kRowsPer = kStrip / (kGemmThreads / 32);  // 4 rows per thread
+  constexpr int kCols = kMaxW / 32;                       // 8 columns
+  const int rb = r0 + blockIdx.x * kStrip;
+  for (int e = tid; e < kStrip * w; e += kGemmThreads) {
+    const int i = e / w, k = e % w;
+    Xs[e] = rb + i < r1 ? X[(size_t)(rb + i) * ldx + a + k]
+                        : c_make(0.f, 0.f);
+  }
+  float2 acc[kRowsPer][kCols];
+#pragma unroll
+  for (int q = 0; q < kRowsPer; ++q)
+#pragma unroll
+    for (int r = 0; r < kCols; ++r) acc[q][r] = c_make(0.f, 0.f);
+  for (int k0 = 0; k0 < w; k0 += kKT) {
+    __syncthreads();
+    for (int e = tid; e < w * kKT; e += kGemmThreads) {
+      const int j = e / kKT, kk = e % kKT;
+      float2 p = c_make(0.f, 0.f);
+      if (k0 + kk < w) p = P[(size_t)j * ldp + k0 + kk];
+      Ps[kk * w + j] = c_make(p.x, -p.y);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kKT; ++kk) {
+      if (k0 + kk >= w) break;
+      float2 xq[kRowsPer];
+#pragma unroll
+      for (int q = 0; q < kRowsPer; ++q)
+        xq[q] = Xs[(ty * kRowsPer + q) * w + k0 + kk];
+#pragma unroll
+      for (int r = 0; r < kCols; ++r) {
+        const int j = tx + 32 * r;
+        if (j < w) {
+          const float2 pj = Ps[kk * w + j];
+#pragma unroll
+          for (int q = 0; q < kRowsPer; ++q)
+            acc[q][r] = c_add(acc[q][r], c_mul(xq[q], pj));
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < kRowsPer; ++q) {
+    const int row = rb + ty * kRowsPer + q;
+    if (row >= r1) continue;
+#pragma unroll
+    for (int r = 0; r < kCols; ++r) {
+      const int j = tx + 32 * r;
+      if (j < w) X[(size_t)row * ldx + a + j] = acc[q][r];
+    }
+  }
+}
+
+size_t gemm_smem(int w) {
+  return ((size_t)w * kStrip + (size_t)kKT * w) * sizeof(float2);
+}
+
+}  // namespace
+
+extern "C" int torcwa_ms_band_scan_c64(const void* H, int n, int hi_top,
+                                       float defl_mult, void* info,
+                                       void* stream) {
+  ms_band_scan<<<1, kScanThreads, 0, (cudaStream_t)stream>>>(
+      (const float2*)H, n, hi_top, defl_mult, (int*)info);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int torcwa_ms_aed_c64(void* H, int n, void* info, int exc, int m,
+                                 int kw, float defl_mult, void* Lp,
+                                 void* shifts, void* stream) {
+  if (kw < 1 || kw > kMaxKw || m < 1 || m > kMaxM)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = (2 * (size_t)kw * kw + 2 * (size_t)(kw + 1) * (kw + 1) +
+                       2 * (size_t)kw + 1) * sizeof(float2);
+  cudaError_t err = set_smem(ms_aed, smem);
+  if (err != cudaSuccess) return (int)err;
+  ms_aed<<<1, kAedThreads, smem, (cudaStream_t)stream>>>(
+      (float2*)H, n, (int*)info, exc, m, kw, defl_mult, (float2*)Lp,
+      (float2*)shifts);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int torcwa_ms_chase_c64(void* H, int n, void* U, int a, int wb,
+                                   int tcur, int t_end, int lo, int hi, int m,
+                                   const void* shifts, void* xy,
+                                   void* stream) {
+  if (m < 1 || m > kMaxM || wb < 1 || wb > kMaxW || a < 0 || a + wb > n)
+    return (int)cudaErrorInvalidValue;
+  // the window fits the 227 KB of shared memory up to wb = 169
+  const size_t smem = (size_t)wb * (wb + 1) * sizeof(float2);
+  const int staged = smem <= kMaxChaseSmem;
+  if (staged) {
+    cudaError_t err = set_smem(ms_chase, smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  ms_chase<<<1, kChaseThreads, staged ? smem : 0, (cudaStream_t)stream>>>(
+      (float2*)H, n, (float2*)U, a, wb, tcur, t_end, lo, hi, m,
+      (const float2*)shifts, (float2*)xy, staged);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int torcwa_ms_apply_left_c64(void* X, int ldx, int a, int w, int c0,
+                                        int c1, const void* P, int ldp,
+                                        void* stream) {
+  if (w < 1 || w > kMaxW) return (int)cudaErrorInvalidValue;
+  if (c1 <= c0) return 0;
+  cudaError_t err = set_smem(ms_apply_left, gemm_smem(w));
+  if (err != cudaSuccess) return (int)err;
+  ms_apply_left<<<(c1 - c0 + kStrip - 1) / kStrip, kGemmThreads, gemm_smem(w),
+                  (cudaStream_t)stream>>>((float2*)X, ldx, a, w, c0, c1,
+                                          (const float2*)P, ldp);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int torcwa_ms_apply_right_c64(void* X, int ldx, int r0, int r1,
+                                         int a, int w, const void* P, int ldp,
+                                         void* stream) {
+  if (w < 1 || w > kMaxW) return (int)cudaErrorInvalidValue;
+  if (r1 <= r0) return 0;
+  cudaError_t err = set_smem(ms_apply_right, gemm_smem(w));
+  if (err != cudaSuccess) return (int)err;
+  ms_apply_right<<<(r1 - r0 + kStrip - 1) / kStrip, kGemmThreads,
+                   gemm_smem(w), (cudaStream_t)stream>>>(
+      (float2*)X, ldx, r0, r1, a, w, (const float2*)P, ldp);
+  return (int)cudaGetLastError();
+}

@@ -1,13 +1,15 @@
 """Build and load the hand-written CUDA kernels (nvcc -> shared library).
 
 The sources under ``torcwa_tpu_torch/csrc`` expose a plain C interface and
-are compiled once per source hash with
+are compiled once per source hash, every source by its own nvcc, all
+started together,
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o build/torch_kernels/<hash>/libtorcwa_kernels.so \
-         torcwa_tpu_torch/csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
+         -Xcompiler -fPIC -Xptxas -v -c -o <name>.o csrc/<name>.cu
 
-into ``build/torch_kernels`` beside the package, then loaded with ctypes.
+and linked with ``nvcc -shared`` into
+``build/torch_kernels/<hash>/libtorcwa_kernels.so`` beside the package,
+then loaded with ctypes.
 Nothing is compiled at import: the first wrapper that launches a kernel
 calls :func:`load`.  A CUDA host without nvcc raises.
 """
@@ -27,11 +29,19 @@ LIB_NAME = 'libtorcwa_kernels.so'
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C entry points: name -> argtypes.  Each returns cudaGetLastError().
 _SIGNATURES = {
     'torcwa_hessenberg_c64': [_P, _P, _P, _I, _I, _P],
     'torcwa_schur_qr_c64': [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     'torcwa_tri_vectors_c64': [_P, _P, _I, _I, _P],
+    'torcwa_tri_vectors_block_c64': [_P, _P, _P, _P, _I, _I, _I, _P],
+    'torcwa_ms_band_scan_c64': [_P, _I, _I, _F, _P, _P],
+    'torcwa_ms_aed_c64': [_P, _I, _P, _I, _I, _I, _F, _P, _P, _P],
+    'torcwa_ms_chase_c64': [_P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P,
+                            _P],
+    'torcwa_ms_apply_left_c64': [_P, _I, _I, _I, _I, _I, _P, _I, _P],
+    'torcwa_ms_apply_right_c64': [_P, _I, _I, _I, _I, _I, _P, _I, _P],
 }
 
 _lib = None
@@ -73,19 +83,32 @@ def build():
         return lib_path
     out_dir.mkdir(parents=True, exist_ok=True)
     tmp = out_dir / f'{LIB_NAME}.{os.getpid()}.tmp'
-    cmd = [_nvcc(), '-gencode', 'arch=compute_90a,code=sm_90a',
-           '-std=c++17', '-O3', '-shared', '-Xcompiler', '-fPIC',
-           '-Xptxas', '-v', '-o', str(tmp)]
-    cmd += [str(p) for p in sorted(CSRC.glob('*.cu'))]
+    nvcc = _nvcc()
+    flags = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
+             '-Xcompiler', '-fPIC']
+    srcs = sorted(CSRC.glob('*.cu'))
+    objs = [out_dir / f'{p.stem}.{os.getpid()}.o' for p in srcs]
     t0 = time.perf_counter()
+    procs = [subprocess.Popen([nvcc, *flags, '-Xptxas', '-v', '-c', '-o',
+                               str(o), str(p)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for p, o in zip(srcs, objs)]
+    logs = [proc.communicate()[0] for proc in procs]
+    for proc, p, log in zip(procs, srcs, logs):
+        if proc.returncode != 0:
+            raise RuntimeError(f'nvcc failed ({proc.returncode}) on {p.name}:\n'
+                               f'{log}')
+    cmd = [nvcc, *flags, '-shared', '-o', str(tmp)] + [str(o) for o in objs]
     res = subprocess.run(cmd, capture_output=True, text=True)
     secs = time.perf_counter() - t0
     if res.returncode != 0:
-        raise RuntimeError(f'nvcc failed ({res.returncode}):\n'
+        raise RuntimeError(f'nvcc link failed ({res.returncode}):\n'
                            f'{" ".join(cmd)}\n{res.stdout}\n{res.stderr}')
+    for o in objs:
+        o.unlink()
     os.replace(tmp, lib_path)
     build_info.update(path=str(lib_path), seconds=secs, cached=False,
-                      log=res.stdout + res.stderr)
+                      log=''.join(logs) + res.stdout + res.stderr)
     return lib_path
 
 

@@ -1,7 +1,9 @@
-"""The three eig kernels of the main path, their plain versions and counts.
+"""The three batched eig kernels of the small-n route, their plain versions,
+and the launch counts of every kernel of the port.
 
 Counterpart of the batched small-n route of ``torcwa_tpu/ops/
-eig_qr_pallas.py``.  Each stage has
+eig_qr_pallas.py`` (the large-n route is in ``hess_blocked.py``,
+``schur_ms.py`` and ``vec_blocked.py``).  Each stage has
 
 * a wrapper (:func:`hessenberg`, :func:`schur_qr`, :func:`tri_vectors`)
   that launches the CUDA kernel in ``csrc/`` for a CUDA tensor and raises
@@ -32,7 +34,11 @@ DEFL_MULT = 4.0
 EXC_EVERY = 13
 MAX_ITER_FACTOR = 40
 
-LAUNCHES = {'hessenberg': 0, 'schur_qr': 0, 'tri_vectors': 0}
+# 'schur_ms' counts every launch of a function of csrc/schur_ms.cu (band
+# scan, AED, chase, slab products), 'tri_vectors_blocked' one per row block;
+# their wrappers live in ops/schur_ms.py and ops/vec_blocked.py
+LAUNCHES = {'hessenberg': 0, 'schur_qr': 0, 'tri_vectors': 0,
+            'schur_ms': 0, 'tri_vectors_blocked': 0}
 
 
 def reset_launch_counts():

@@ -1,27 +1,55 @@
-"""Batched complex eig through the three kernels: Hessenberg -> Schur QR ->
-triangular eigenvectors, then V = Z Y and unit-norm columns; complex64
-results then take one refinement step with the residual in complex128.
+"""Complex eig through the hand-written kernels, by two routes, then
+V = Z Y, unit-norm columns and, for complex64, four refinement steps with
+the residual in complex128.
 
-Counterpart of the routing in ``torcwa_tpu/ops/eig_qr_real.py`` (the
-batched small-n route, ``_eig_real_batched``).  Every n takes the same
-route: these kernels keep H, Z and Y in device memory and have no size
-ceiling, so the TPU's VMEM-driven thresholds (``_HBM_MIN_N_SINGLE``,
-``_acc_chunk``) do not carry over.  The large-n route (multishift QR,
-blocked vectors) is still to be ported.
+Counterpart of the routing in ``torcwa_tpu/ops/eig_qr_real.py``
+(``eig_qr_real``, ``_eig_real_batched``, ``_eig_real_single``):
+
+* n < ``LARGE_MIN_N``: the batched route, one thread block per matrix:
+  ``hessenberg`` -> ``schur_qr`` (single shift) -> ``tri_vectors``
+  (``eig_kernels.py``);
+* n >= ``LARGE_MIN_N``: the large-n route, lane by lane:
+  ``hessenberg_blocked`` (compact-WY panels, plain torch GEMV/GEMM) ->
+  ``schur_ms`` (windowed multishift QR with aggressive early deflation,
+  m = 24 shifts below n = 4200, else 32) -> ``tri_vectors_blocked``.
+
+The small route's kernels keep H, Z and Y in device memory and have no
+size ceiling, but run one block per matrix and a single-shift QR whose
+work grows as n^3 sweeps of O(n) latency-bound rotations; the threshold is
+where the two routes were measured to cross on an H100 (PERF.md), not the
+TPU's VMEM-driven ``_HBM_MIN_N_SINGLE``.
 """
 
 import torch
 
+from .._constants import pin_f32_precision
 from .eig_kernels import hessenberg, schur_qr, tri_vectors
+from .hess_blocked import hessenberg_blocked
+from .schur_ms import schur_ms
+from .vec_blocked import tri_vectors_blocked
 
-__all__ = ['eig_qr']
+__all__ = ['eig_qr', 'LARGE_MIN_N']
 
-# pairs with |E_ij| >= _REFINE_GAP |w_j - w_i| are degenerate at the
-# accuracy of the first pass and keep their basis
-_REFINE_GAP = 0.1
+# matrices of this order and above take the large-n route
+LARGE_MIN_N = 512
+# deflation-threshold multiplier of the multishift QR (eig_qr_real._HBM_DEFL)
+LARGE_DEFL_MULT = 4.0
+# refinement of a complex64 result: (steps, gap).  Pairs with |E_ij| >= gap
+# |w_j - w_i| count as degenerate at the accuracy of the pass before and keep
+# their basis.  The multishift QR streams ~2000 slab products through Z at
+# n = 3362 and leaves a Schur residual of ~1e-5 ||A||, ten times the small
+# route's, where 38 eigenvalue pairs lie closer than 1e-2 (spectral radius
+# 2286): with gap 0.1 those pairs are never touched and the raster-gradient
+# cosine stops at 0.96-0.99.  Gap 1.0, the edge of where the first-order
+# update still contracts, and four steps reach 0.997-0.9998 on four order-20
+# scenes; one step less or gap 0.5 falls to 0.96-0.99 on one of them.  The
+# small route holds its gates with one step already; it takes the same four
+# (+10 to 30 ms on a 270 ms order-6 sweep), which also lifts its 0.2 degree
+# cosine from 0.889 to 0.998 (H100, refine_scenes.py, PERF.md)
+REFINE = (4, 1.0)
 
 
-def _refine(A, w, V):
+def _refine(A, w, V, gap=REFINE[1]):
     """One step of first-order eigenpair refinement of a complex64 result.
 
     With the residual taken in complex128 (where the complex64 A is exact),
@@ -29,21 +57,36 @@ def _refine(A, w, V):
     V += V F, F_ij = E_ij / (w_j - w_i) off the diagonal.  The single-shift
     QR accumulates ~1e5 rotations into Z, which leaves the eigenvectors of
     close pairs about 10x less accurate than LAPACK's complex64; this step
-    brings them to the accuracy of A itself.  Non-converged (NaN) lanes stay
-    NaN."""
+    brings them to the accuracy of A itself.  Pairs with |E_ij| >= gap
+    |w_j - w_i| keep their basis.  Non-converged (NaN) lanes stay NaN."""
     A64, w64, V64 = A.to(torch.complex128), w.to(torch.complex128), \
         V.to(torch.complex128)
     R = A64 @ V64 - V64 * w64[..., None, :]
     E = torch.linalg.solve_ex(V64, R)[0]
-    gap = w64[..., None, :] - w64[..., :, None]              # w_j - w_i
+    dw = w64[..., None, :] - w64[..., :, None]               # w_j - w_i
     off = ~torch.eye(w.shape[-1], dtype=torch.bool, device=w.device)
-    ok = off & (E.abs() < _REFINE_GAP * gap.abs())
-    F = torch.where(ok, E / torch.where(ok, gap, torch.ones_like(gap)),
+    ok = off & (E.abs() < gap * dw.abs())
+    F = torch.where(ok, E / torch.where(ok, dw, torch.ones_like(dw)),
                     torch.zeros_like(E))
     V64 = V64 + V64 @ F
     V64 = V64 / torch.linalg.vector_norm(V64, dim=-2, keepdim=True)
     w64 = w64 + torch.diagonal(E, dim1=-2, dim2=-1)
     return w64.to(w.dtype), V64.to(V.dtype)
+
+
+def large_shifts(n):
+    """Shifts per sweep of the multishift QR (eig_qr_real._hbm_shifts)."""
+    return 24 if n < 4200 else 32
+
+
+def _eig_large(A):
+    """One (n, n) matrix through the large-n route: (w, V), V = Z Y not
+    yet normalised."""
+    pin_f32_precision()
+    H, Q = hessenberg_blocked(A)
+    T, Z = schur_ms(H, Q, m=large_shifts(A.shape[-1]),
+                    defl_mult=LARGE_DEFL_MULT)
+    return torch.diagonal(T), Z @ tri_vectors_blocked(T)
 
 
 def eig_qr(A):
@@ -55,12 +98,18 @@ def eig_qr(A):
     n = A.shape[-1]
     batch = A.shape[:-2]
     A3 = A.reshape(-1, n, n).contiguous()
-    H, Q = hessenberg(A3)
-    T, Z = schur_qr(H, Q)
-    w = torch.diagonal(T, dim1=-2, dim2=-1)
-    V = Z @ tri_vectors(T)
+    if n >= LARGE_MIN_N:
+        lanes = [_eig_large(a) for a in A3]
+        w = torch.stack([l[0] for l in lanes])
+        V = torch.stack([l[1] for l in lanes])
+    else:
+        H, Q = hessenberg(A3)
+        T, Z = schur_qr(H, Q)
+        w = torch.diagonal(T, dim1=-2, dim2=-1)
+        V = Z @ tri_vectors(T)
     nrm = torch.linalg.vector_norm(V, dim=-2, keepdim=True)
     V = V / torch.where(nrm > 0, nrm, torch.ones_like(nrm))
     if A3.dtype == torch.complex64:
-        w, V = _refine(A3, w, V)
+        for _ in range(REFINE[0]):
+            w, V = _refine(A3, w, V, REFINE[1])
     return w.reshape(batch + (n,)), V.reshape(batch + (n, n))

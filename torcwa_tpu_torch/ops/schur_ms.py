@@ -1,0 +1,524 @@
+"""Windowed multishift Schur QR with aggressive early deflation for one
+large Hessenberg matrix: H = Z T Z^H.
+
+Counterpart of ``torcwa_tpu/ops/eig_qr_hbm.py`` (``schur_qr_hbm``).  The
+sweep loop runs here on the host, once for both versions:
+
+* the band scan gives the active block [lo, hi];
+* AED on the trailing window of at most ``kw`` rows deflates what it can
+  and yields the sweep's ``m`` shifts; its transform is applied to the
+  off-diagonal slabs of H and to Z only when it deflated something;
+* the nibble rule skips the chase when AED alone deflated more than
+  ``nibble`` percent of its window and the sweep is not exceptional;
+* otherwise ``m`` spacing-2 bulges are chased through overlapping windows
+  of ``wb`` rows, each window's accumulated unitary U then being applied
+  to the slabs right of and above the window and to Z;
+* 13 sweeps without progress make the next sweep exceptional.
+
+:class:`_CudaOps` launches the functions of ``csrc/schur_ms.cu`` and reads
+five integers back per sweep; :class:`_PlainOps` is the plain PyTorch
+version of the same steps, rotation by rotation, in the input's precision.
+Convention in both: plain Q and plain Z (no conjugated accumulators, no
+transposed storage); a rotation G = [[c, s], [-conj(s), c]] acts on rows
+k, k+1 from the left and G^H on columns k, k+1 from the right.
+"""
+
+import torch
+
+from . import _build
+from .eig_kernels import (LAUNCHES, _consts, _givens, _raise_on, _stream,
+                          _wilkinson)
+
+__all__ = ['schur_ms', 'schur_ms_plain', 'run_sweeps', 'window',
+           'ms_apply_left', 'ms_apply_right', 'AED_KW', 'NIBBLE', 'EXC_STALL']
+
+AED_KW = 64          # AED window (eig_qr_hbm._AED_KW)
+NIBBLE = 14          # percent of the window (eig_qr_hbm._NIBBLE)
+EXC_STALL = 13       # sweeps without progress before an exceptional sweep
+MAX_ITER_FACTOR = 40
+ALIGN = 64           # window starts and the window advance are multiples of it
+# limits compiled into csrc/schur_ms.cu
+_MAX_M, _MAX_KW, _MAX_WB = 64, 64, 256
+
+
+def _overlap(m):
+    """Rows two successive windows share: the trailing bulge of a resumed
+    chase (row tcur - 2(m-1)) and the column left of it lie inside the next
+    window."""
+    return -(-(2 * m + 1) // ALIGN) * ALIGN
+
+
+def window(m):
+    """Default chase window for m shifts: the narrowest that advances by
+    ``ALIGN`` rows (128 for m = 24, 192 for m = 32).  The JAX package takes
+    wb = 256 advancing by 128; on an H100 the narrower window halves both
+    the rotated row length of the chase and the slab products' operations
+    and fits in shared memory (PERF.md)."""
+    return _overlap(m) + ALIGN
+
+
+def max_sweeps(n, m, max_iter_factor=MAX_ITER_FACTOR):
+    return (max_iter_factor * n) // m + 8 * m + 40
+
+
+# ---------------------------------------------------------------------------
+# plain version
+# ---------------------------------------------------------------------------
+
+def _givens_scalar(x, y):
+    """eig_kernels._givens on two Python complex numbers: the 2 x 2
+    rotation G = [[c, s], [-conj(s), c]] with G [x; y] = [r; 0]."""
+    ax2, ay2 = abs(x) ** 2, abs(y) ** 2
+    dn, ax = (ax2 + ay2) ** 0.5, ax2 ** 0.5
+    if ax2 == 0 and ay2 > 0:
+        c, s = 0., 1. + 0j
+    elif ax > 0 and dn > 0:
+        c, s = ax / dn, x * y.conjugate() / (ax * dn)
+    else:
+        c, s = 1., 0j
+    return [[c, s], [-s.conjugate(), c]]
+
+
+def _mini_schur(W, budget):
+    """Single-shift Schur form of a small Hessenberg W with accumulated
+    Qm, T = Qm W Qm^H (eig_qr_hbm._mini_schur).  Returns (T, Qm, hi_m,
+    iterations); lanes >= hi_m of T are converged eigenvalues."""
+    W = W.clone()
+    kw = W.shape[-1]
+    eps, smlnum = _consts(W.dtype)
+    Qm = torch.eye(kw, dtype=W.dtype)
+    hi, it = kw - 1, 0
+    true = torch.ones((), dtype=torch.bool)
+    while True:
+        d = torch.diagonal(W).abs()
+        sub = torch.diagonal(W, -1)
+        th = torch.clamp(eps * (d[:-1] + d[1:]), min=smlnum)
+        alive = ((sub.real ** 2 + sub.imag ** 2) > th * th).tolist()
+        while hi > 0 and not alive[hi - 1]:
+            hi -= 1
+        if hi <= 0 or it >= budget:
+            break
+        lo = hi
+        while lo > 0 and alive[lo - 1]:
+            lo -= 1
+        a, b, c_, d_ = W[hi - 1, hi - 1], W[hi - 1, hi], W[hi, hi - 1], W[hi, hi]
+        sh = _wilkinson(a, b, c_, d_, true)
+        if it % 13 == 12:
+            sh = torch.complex(d_.real + 0.75 * c_.abs(), d_.imag)
+        x, y = complex(W[lo, lo] - sh), complex(W[lo + 1, lo])
+        for k in range(lo, hi):
+            G = torch.tensor(_givens_scalar(x, y), dtype=W.dtype)
+            j0, i1 = max(k - 1, 0), min(k + 2, hi) + 1
+            W[k:k + 2, j0:] = G @ W[k:k + 2, j0:]
+            if k > lo:
+                W[k + 1, k - 1] = 0
+            Qm[k:k + 2] = G @ Qm[k:k + 2]
+            W[:i1, k:k + 2] = W[:i1, k:k + 2] @ G.mH
+            x = complex(W[k + 1, k])
+            y = complex(W[k + 2, k]) if k + 2 <= hi else 0j
+        it += 1
+    return W, Qm, hi, it
+
+
+class _PlainOps:
+    """The steps of a sweep in plain PyTorch, in place on H and Z.  The AED
+    window (at most kw x kw) is worked on the CPU, the chase and the slab
+    products where H lives."""
+
+    def __init__(self, H, Z, m, kw, wb, defl_mult):
+        self.H, self.Z = H, Z
+        self.n = H.shape[-1]
+        self.m, self.kw, self.wb, self.defl_mult = m, kw, wb, defl_mult
+        self.eps, self.smlnum = _consts(H.dtype)
+        self.shifts = None
+        self.Lp = None
+        self.U = None
+        self.xs = self.ys = None
+
+    def scan_and_aed(self, hi_top, exc):
+        H, m, kw = self.H, self.m, self.kw
+        eps, smlnum, mult = self.eps, self.smlnum, self.defl_mult
+        dg = torch.diagonal(H).abs()
+        sub = torch.diagonal(H, -1)
+        th = torch.clamp(mult * eps * (dg[:-1] + dg[1:]), min=smlnum)
+        alive = ((sub.real ** 2 + sub.imag ** 2) > th * th).tolist()
+        hi = hi_top
+        while hi > 0 and not alive[hi - 1]:
+            hi -= 1
+        if hi <= 0:
+            return 0, 0, 0, 0, 0
+        lo = hi
+        while lo > 0 and alive[lo - 1]:
+            lo -= 1
+        s = max(hi - kw + 1, lo + 1)
+        kwe = hi - s + 1
+        W = H[s:s + kwe, s:s + kwe].cpu()
+        beta = H[s, s - 1].cpu()
+        smax = max(float(W.abs().max()), smlnum)
+        T, Qm, hi_m, _ = _mini_schur(W, 3 * kw + 40)
+        spike = beta * Qm[:, 0]
+        td = torch.diagonal(T)
+        lane = torch.arange(kwe)
+        defl = ((spike.abs() <= mult * eps * torch.clamp(td.abs(), min=smax))
+                & (lane >= hi_m))
+        keep = (~defl).nonzero()
+        ku = int(keep[-1]) + 1 if keep.numel() else 0
+        hi_new = s + ku - 1
+        kum1 = max(ku - 1, 0)
+        if exc:
+            pos = torch.clamp(ku - m + torch.arange(m), 0, kum1)
+            sh = torch.complex(td[pos].real + 0.75 * spike[pos].abs(),
+                               td[pos].imag)
+        else:
+            # undeflated lanes by distance to the new corner (ties in index
+            # order), then the deflated lanes in index order
+            dist = (td - td[kum1]).abs() ** 2
+            dist = torch.where(lane < ku, dist,
+                               torch.full_like(dist, float('inf')))
+            order = torch.sort(dist, stable=True).indices[:m]
+            sh = td[order]
+            if kwe < m:
+                sh = torch.cat([sh, sh[-1:].expand(m - kwe)])
+        self.shifts = sh.to(H.device)
+        # bordered matrix [[0, 0], [spike, T]] and L = diag(1, Qm)
+        K1 = kwe + 1
+        Ap = torch.zeros(K1, K1, dtype=H.dtype)
+        Ap[1:, 1:] = T
+        Ap[1:, 0] = torch.where(defl, torch.zeros_like(spike), spike)
+        L = torch.eye(K1, dtype=H.dtype)
+        L[1:, 1:] = Qm
+        tiny = 1e-30 if H.dtype == torch.complex64 else 1e-290
+        for j in range(ku - 1):
+            col = Ap[:, j]
+            x1 = col[j + 1]
+            sigma = float((col[j + 2:ku + 1].abs() ** 2).sum())
+            if not sigma > 0:
+                continue
+            xn1 = float(x1.abs())
+            ph = x1 / xn1 if xn1 > 0 else torch.ones_like(x1)
+            normx = (sigma + xn1 * xn1) ** 0.5
+            v = torch.zeros(K1, dtype=H.dtype)
+            v[j + 2:ku + 1] = col[j + 2:ku + 1]
+            v[j + 1] = x1 + ph * normx
+            tau = 2. / max(2. * (sigma + xn1 * xn1 + normx * xn1), tiny)
+            Ap -= tau * torch.outer(v, v.conj() @ Ap)
+            Ap -= tau * torch.outer(Ap @ v, v.conj())
+            L -= tau * torch.outer(v, v.conj() @ L)
+        if hi_new < hi:
+            r = torch.arange(K1)[:, None]
+            c = torch.arange(K1)[None, :]
+            dead = (c + 2 <= r) | ((c + 1 == r) & (r >= ku + 1))
+            Ap = Ap.masked_fill(dead, 0)
+            H[s:s + kwe, s - 1:s + kwe] = Ap[1:].to(H.device)
+        self.Lp = L[1:, 1:].contiguous().to(H.device)
+        return lo, hi, s, kwe, hi_new
+
+    def apply_aed(self, s, kwe):
+        H, Z, P, e = self.H, self.Z, self.Lp, s + kwe
+        H[s:e, e:] = P @ H[s:e, e:]
+        H[:s, s:e] = H[:s, s:e] @ P.mH
+        Z[:, s:e] = Z[:, s:e] @ P.mH
+
+    def start_chase(self):
+        self.xs = torch.zeros(self.m, dtype=self.H.dtype, device=self.H.device)
+        self.ys = torch.zeros_like(self.xs)
+
+    def chase(self, a, wbe, tcur, t_end, lo, hi):
+        H, m = self.H, self.m
+        dev = H.device
+        U = torch.eye(wbe, dtype=H.dtype, device=dev)
+        Hw = H[:, a:a + wbe]                 # the window's columns, all rows
+        ii = torch.arange(m, device=dev)
+        valid = lo + 2 * ii + 1 <= hi
+        idx = torch.arange(a, a + wbe, device=dev)[None, :]
+        xs, ys = self.xs, self.ys
+        for t in range(tcur, t_end + 1):
+            ks = t - 2 * ii
+            act = valid & (ks >= lo) & (ks < hi)
+            if not bool(act.any()):
+                continue
+            intro = act & (ks == lo)
+            xs = torch.where(intro, H[lo, lo] - self.shifts, xs)
+            ys = torch.where(intro, H[lo + 1, lo], ys)
+            k = ks[act]
+            c, s = _givens(xs[act], ys[act])
+            c, s = c[:, None], s[:, None]
+            # rows k, k+1: columns >= max(k-1, lo) of the window, and U
+            hk, h1 = Hw[k], Hw[k + 1]
+            on = idx >= torch.clamp(k - 1, min=lo)[:, None]
+            zap = (idx == (k - 1)[:, None]) & (k > lo)[:, None]
+            Hw[k] = torch.where(on, c * hk + s * h1, hk)
+            n1 = torch.where(on, c * h1 - s.conj() * hk, h1)
+            Hw[k + 1] = torch.where(zap, torch.zeros_like(n1), n1)
+            uk, u1 = U[k - a], U[k + 1 - a]
+            U[k - a] = c * uk + s * u1
+            U[k + 1 - a] = c * u1 - s.conj() * uk
+            # columns k, k+1: the window's rows up to min(k+2, hi)
+            cl, cr = H[a:a + wbe, k].T, H[a:a + wbe, k + 1].T
+            on = idx <= torch.clamp(k + 2, max=hi)[:, None]
+            H[a:a + wbe, k] = torch.where(on, c * cl + s.conj() * cr, cl).T
+            H[a:a + wbe, k + 1] = torch.where(on, c * cr - s * cl, cr).T
+            xs[act] = H[k + 1, k]          # xs, ys are this step's own copies
+            k2 = torch.clamp(k + 2, max=hi)
+            ys[act] = torch.where(k + 2 <= hi, H[k2, k],
+                                  torch.zeros_like(xs[act]))
+        self.xs, self.ys = xs, ys
+        self.U = U
+
+    def apply_window(self, a, wbe):
+        H, Z, U, e = self.H, self.Z, self.U, a + wbe
+        H[a:e, e:] = U @ H[a:e, e:]
+        H[:a, a:e] = H[:a, a:e] @ U.mH
+        Z[:, a:e] = Z[:, a:e] @ U.mH
+
+
+# ---------------------------------------------------------------------------
+# CUDA version
+# ---------------------------------------------------------------------------
+
+def _launch(name, *args):
+    err = getattr(_build.load(), name)(*args, _stream())
+    _raise_on(name, err)
+    LAUNCHES['schur_ms'] += 1
+
+
+def _check_slab(name, X, P):
+    if X.device.type != 'cuda':
+        raise RuntimeError(f'{name}: no kernel for device {X.device.type!r}')
+    if X.dtype != torch.complex64 or P.dtype != torch.complex64:
+        raise TypeError(f'{name}: the CUDA kernel takes complex64 only')
+    if X.dim() != 2 or P.dim() != 2 or P.shape[0] != P.shape[1] \
+            or X.stride(1) != 1 or P.stride(1) != 1 or P.device != X.device:
+        raise ValueError(f'{name}: expected row-major 2-D tensors on one '
+                         'device')
+    if P.shape[0] > _MAX_WB:
+        raise ValueError(f'{name}: transform order {P.shape[0]} > {_MAX_WB}')
+
+
+def ms_apply_left(X, a, c0, c1, P):
+    """X[a:a+w, c0:c1] <- P X[a:a+w, c0:c1] in place, w = P.shape[0]: the
+    hand-written slab GEMM for a CUDA tensor, torch.matmul on the CPU."""
+    w = P.shape[0]
+    if X.device.type == 'cpu':
+        X[a:a + w, c0:c1] = P @ X[a:a + w, c0:c1]
+        return X
+    _check_slab('ms_apply_left', X, P)
+    if not (0 <= a and a + w <= X.shape[0] and 0 <= c0 and c1 <= X.shape[1]):
+        raise ValueError('ms_apply_left: slab out of range')
+    if c1 > c0:
+        _launch('torcwa_ms_apply_left_c64', X.data_ptr(), X.stride(0), a, w,
+                c0, c1, P.data_ptr(), P.stride(0))
+    return X
+
+
+def ms_apply_right(X, r0, r1, a, P):
+    """X[r0:r1, a:a+w] <- X[r0:r1, a:a+w] P^H in place."""
+    w = P.shape[0]
+    if X.device.type == 'cpu':
+        X[r0:r1, a:a + w] = X[r0:r1, a:a + w] @ P.mH
+        return X
+    _check_slab('ms_apply_right', X, P)
+    if not (0 <= r0 and r1 <= X.shape[0] and 0 <= a and a + w <= X.shape[1]):
+        raise ValueError('ms_apply_right: slab out of range')
+    if r1 > r0:
+        _launch('torcwa_ms_apply_right_c64', X.data_ptr(), X.stride(0), r0,
+                r1, a, w, P.data_ptr(), P.stride(0))
+    return X
+
+
+class _CudaOps:
+    """The steps of a sweep through csrc/schur_ms.cu, in place on H and Z.
+    Scratch (the AED transform, the window unitary, shifts, bulge carries,
+    the info record) is allocated here once; nothing is allocated in C."""
+
+    def __init__(self, H, Z, m, kw, wb, defl_mult):
+        if m > _MAX_M or kw > _MAX_KW or wb > _MAX_WB:
+            raise ValueError(f'schur_ms: the CUDA kernels take m <= {_MAX_M},'
+                             f' kw <= {_MAX_KW}, wb <= {_MAX_WB}')
+        self.H, self.Z = H, Z
+        self.n = H.shape[-1]
+        self.m, self.kw, self.wb, self.defl_mult = m, kw, wb, defl_mult
+        dev = H.device
+        self.info = torch.zeros(8, dtype=torch.int32, device=dev)
+        self.Lp = torch.zeros(kw * kw, dtype=H.dtype, device=dev)
+        self.U = torch.zeros(wb * wb, dtype=H.dtype, device=dev)
+        self.shifts = torch.zeros(m, dtype=H.dtype, device=dev)
+        self.xy = torch.zeros(2 * m, dtype=H.dtype, device=dev)
+
+    def scan_and_aed(self, hi_top, exc):
+        H, n = self.H, self.n
+        _launch('torcwa_ms_band_scan_c64', H.data_ptr(), n, hi_top,
+                self.defl_mult, self.info.data_ptr())
+        _launch('torcwa_ms_aed_c64', H.data_ptr(), n, self.info.data_ptr(),
+                int(exc), self.m, self.kw, self.defl_mult,
+                self.Lp.data_ptr(), self.shifts.data_ptr())
+        lo, hi, s, kwe, hi_new = self.info[:5].tolist()
+        return lo, hi, s, kwe, hi_new
+
+    def apply_aed(self, s, kwe):
+        P, e, n = self.Lp[:kwe * kwe].view(kwe, kwe), s + kwe, self.n
+        ms_apply_left(self.H, s, e, n, P)
+        ms_apply_right(self.H, 0, s, s, P)
+        ms_apply_right(self.Z, 0, n, s, P)
+
+    def start_chase(self):
+        self.xy.zero_()
+
+    def chase(self, a, wbe, tcur, t_end, lo, hi):
+        _launch('torcwa_ms_chase_c64', self.H.data_ptr(), self.n,
+                self.U.data_ptr(), a, wbe, tcur, t_end, lo, hi, self.m,
+                self.shifts.data_ptr(), self.xy.data_ptr())
+
+    def apply_window(self, a, wbe):
+        P, e, n = self.U[:wbe * wbe].view(wbe, wbe), a + wbe, self.n
+        ms_apply_left(self.H, a, e, n, P)
+        ms_apply_right(self.H, 0, a, a, P)
+        ms_apply_right(self.Z, 0, n, a, P)
+
+
+# ---------------------------------------------------------------------------
+# the sweep loop
+# ---------------------------------------------------------------------------
+
+# real floating-point operations of one complex multiply-add, and of one
+# rotated element pair (two outputs, each a real and a complex product)
+_CFMA, _PAIR = 8, 20
+
+
+def _sweeps(ops, n, m, kw, wb, budget, nibble):
+    """Run sweeps until the active block closes or the budget runs out.
+    Returns (hi, sweeps, aed_deflated, skipped_chases, flops_done,
+    flops_needed).  flops_done counts this implementation's work: the slab
+    products exactly (overlapping windows included), a chase rotation as
+    2 wb element pairs (half a window row of H, a row of U, half a window
+    column), an AED window as 100 kwe^3.  flops_needed is the least
+    arithmetic that carries out the same sweeps whatever the windowing:
+    every chase rotation applied directly to its 2n element pairs (a row
+    pair and a column pair of H, a column pair of Z), and every applied AED
+    transform as one dense kwe x kwe product with its 2n - kwe slab
+    columns and rows."""
+    stride = wb - _overlap(m)
+    hi_top, it, stall, aed_tot, skip_tot, flops, need = n - 1, 0, 0, 0, 0, 0, 0
+    while hi_top > 0 and it < budget:
+        exc = stall >= EXC_STALL
+        lo, hi_band, s, kwe, hi = ops.scan_and_aed(hi_top, exc)
+        it += 1
+        if hi_band <= 0:
+            hi_top = 0
+            break
+        flops += 100 * kwe ** 3
+        if hi < hi_band:
+            ops.apply_aed(s, kwe)
+            flops += _CFMA * kwe * kwe * ((n - s - kwe) + s + n)
+            need += _CFMA * kwe * kwe * ((n - s - kwe) + s + n)
+        nibbled = (hi_band - hi) * 100 > nibble * max(kwe, 1) and not exc
+        if hi > lo and not nibbled:
+            t_final = hi - 1 + 2 * (m - 1)
+            a = (max(lo - 2 * (m - 1), 0) // ALIGN) * ALIGN
+            tcur = lo
+            ops.start_chase()
+            bulges = min(m, (hi - lo - 1) // 2 + 1)
+            flops += _PAIR * 2 * wb * bulges * (hi - lo)
+            need += _PAIR * 2 * n * bulges * (hi - lo)
+            while tcur <= t_final:
+                last = a + wb >= n
+                wbe = n - a if last else wb
+                t_end = t_final if last else min(a + wb - 3, t_final)
+                ops.chase(a, wbe, tcur, t_end, lo, hi)
+                ops.apply_window(a, wbe)
+                flops += _CFMA * wbe * wbe * ((n - a - wbe) + a + n)
+                a += stride
+                tcur = t_end + 1
+        stall = 0 if (hi < hi_top or exc) else stall + 1
+        aed_tot += hi_band - hi
+        skip_tot += int(nibbled)
+        hi_top = hi
+    return hi_top, it, aed_tot, skip_tot, flops, need
+
+
+def _check_args(H, Q, m, kw, wb, aed):
+    if not aed:
+        raise NotImplementedError(
+            'schur_ms(aed=False), shifts from the trailing m x m block, is '
+            'still to be ported (ROADMAP.md, "Still to be ported")')
+    if H.dim() != 2 or H.shape[0] != H.shape[1] or H.shape != Q.shape \
+            or not H.is_complex() or H.dtype != Q.dtype \
+            or H.device != Q.device:
+        raise ValueError('schur_ms: expected two complex (n, n) matrices of '
+                         'one type on one device')
+    if wb <= _overlap(m):
+        raise ValueError(f'window {wb} too small for {m} bulges '
+                         f'(stride {wb - _overlap(m)} <= 0)')
+    if m > kw:
+        raise ValueError(f'm={m} shifts need an AED window kw >= m '
+                         f'(got {kw})')
+
+
+def run_sweeps(H, Z, budget, plain=False, m=24, kw=AED_KW, wb=None,
+               defl_mult=4.0, nibble=NIBBLE):
+    """At most ``budget`` sweeps in place on H and Z: the kernels for CUDA
+    tensors, the plain version for CPU tensors or when ``plain``.  Returns
+    the stats of :func:`_sweeps`; H stays a unitary similarity of its
+    input, upper Hessenberg with the rows below hi triangular."""
+    wb = window(m) if wb is None else wb
+    if not plain and H.device.type != 'cpu':
+        if H.device.type != 'cuda':
+            raise RuntimeError(f'schur_ms: no kernel for device '
+                               f'{H.device.type!r}')
+        if H.dtype != torch.complex64:
+            raise TypeError(f'schur_ms: the CUDA kernels take complex64 only '
+                            f'(got {H.dtype}); float64 kernels are still to '
+                            f'be ported')
+        if not (H.is_contiguous() and Z.is_contiguous()):
+            raise ValueError('schur_ms: H and Z must be contiguous')
+        ops = _CudaOps(H, Z, m, kw, wb, defl_mult)
+    else:
+        ops = _PlainOps(H, Z, m, kw, wb, defl_mult)
+    return _sweeps(ops, H.shape[-1], m, kw, wb, budget, nibble)
+
+
+def _finish(H, Z, stats, return_stats):
+    T = torch.triu(H)
+    if stats[0] > 0:
+        T.diagonal().fill_(float('nan'))
+    if return_stats:
+        return T, Z, stats
+    return T, Z
+
+
+def schur_ms_plain(H, Q, m=24, kw=AED_KW, wb=None, defl_mult=4.0,
+                   max_iter_factor=MAX_ITER_FACTOR, nibble=NIBBLE, aed=True,
+                   budget=None, return_stats=False):
+    """The plain PyTorch version of :func:`schur_ms` (same arguments)."""
+    wb = window(m) if wb is None else wb
+    _check_args(H, Q, m, kw, wb, aed)
+    n = H.shape[-1]
+    H, Z = H.clone(), Q.clone()
+    if budget is None:
+        budget = max_sweeps(n, m, max_iter_factor)
+    stats = run_sweeps(H, Z, budget, True, m, kw, wb, defl_mult, nibble)
+    return _finish(H, Z, stats, return_stats)
+
+
+def schur_ms(H, Q, m=24, kw=AED_KW, wb=None, defl_mult=4.0,
+             max_iter_factor=MAX_ITER_FACTOR, nibble=NIBBLE, aed=True,
+             budget=None, return_stats=False):
+    """Schur form of one Hessenberg H with its Q: (T, Z), H = Z T Z^H.
+
+    ``budget`` sweeps at most (default ``(max_iter_factor n) // m + 8 m +
+    40``); when it runs out the eigenvalues (the diagonal of T) are NaN.
+    With ``return_stats`` also returns (hi, sweeps, AED-deflated,
+    skipped chases, flops done, flops needed), hi == 0 meaning converged
+    (see :func:`_sweeps` for the two counts).  ``wb`` is the chase window,
+    by default :func:`window` of m; windows start at multiples of ``ALIGN``
+    and advance by wb less the overlap m bulges need.  A CUDA tensor goes
+    through the kernels of ``csrc/schur_ms.cu`` (complex64 only), a CPU
+    tensor through the plain version."""
+    wb = window(m) if wb is None else wb
+    _check_args(H, Q, m, kw, wb, aed)
+    n = H.shape[-1]
+    H, Z = H.contiguous().clone(), Q.contiguous().clone()
+    if budget is None:
+        budget = max_sweeps(n, m, max_iter_factor)
+    stats = run_sweeps(H, Z, budget, False, m, kw, wb, defl_mult, nibble)
+    return _finish(H, Z, stats, return_stats)
