@@ -1,8 +1,10 @@
 """GPU smoke run of torcwa_tpu_torch: build, check and time the eig kernels
-and drive the port's two main paths on one CUDA card, forward and backward:
-the Example-1 sweep (order 6, 8 wavelengths, grid 256, float32) through the
-batched small-n kernels, and one order-(20, 20) solve (2N = 3362) through
-the large-n route.
+and drive the port's paths on one CUDA card, forward and backward: the
+Example-1 sweep (order 6, 8 wavelengths, grid 256, float32) through the
+batched small-n kernels, one order-(20, 20) solve (2N = 3362) through the
+large-n route, and the composed eig through the two stand-alone Schur
+stages (schur_qr_v2 on the order-6 batch, schur_qr_ms on one matrix at
+orders 6 to 8 and inside one order-(7, 7) solve).
 
     python3 chip_smoke.py
 
@@ -28,6 +30,15 @@ Phases (each prints its results; any failure exits non-zero):
   7. times with CUDA events; the two routes at n = 338, 578 and 882
   8. torch.profiler over one order-6 sweep and one order-20 solve: device
      time by kernel, idle share
+  9. the stand-alone stages against their plain versions: schur_qr_v2 at
+     (2, 48), schur_qr_ms at n = 64 and 200, schur_ms(aed=False) at n = 300
+     (and at n = 640 against complex128 LAPACK), the NaN / no-NaN contracts
+ 10. the composed eig (Hessenberg -> stage -> vectors -> refinement) at full
+     width: schur_qr_v2 on the (8, 338, 338) order-6 batch, schur_qr_ms on
+     one wave matrix at n = 338, 450 and 578, then one order-(7, 7) solve,
+     forward and raster gradient, with the small route's Schur stage swapped
+     to schur_qr_ms, against the complex128 oracle
+ 11. times of the stand-alone stages beside schur_qr and the two routes
 The line before the last is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}.  Needs no JAX and no network.
 """
@@ -61,12 +72,22 @@ REPLACES = {
     'tri_vectors': 'torcwa_tpu/ops/eig_qr_pallas.py:768',
     'schur_ms': 'torcwa_tpu/ops/eig_qr_hbm.py:266',
     'tri_vectors_blocked': 'torcwa_tpu/ops/vec_blocked.py:34',
+    'schur_qr_v2': 'torcwa_tpu/ops/eig_qr_pallas.py:82',
+    'schur_qr_ms': 'torcwa_tpu/ops/eig_qr_pallas_ms.py:226',
 }
 SOURCES = {k: f'torcwa_tpu_torch/csrc/{k}.cu' for k in REPLACES}
+# the v2 QR is the second entry point of the single-shift kernel's source
+SOURCES['schur_qr_v2'] = SOURCES['schur_qr']
 # sizes of the large-route kernel checks on random matrices
 N_MID, N_BIG, N_SLAB = 300, 640, 3362
 SMALL = ('hessenberg', 'schur_qr', 'tri_vectors')
 LARGE = ('schur_ms', 'tri_vectors_blocked')
+ALT = ('schur_qr_v2', 'schur_qr_ms')
+# the stand-alone stages: shifts per sweep of schur_qr_ms on the wave
+# matrices, and the sweeps of schur_qr_v2 that its plain version is timed on
+# at B = 8, n = 338 (in full it would take minutes)
+MS_M = 16
+V2_BUDGET = 20
 
 # NVIDIA H100 SXM data sheet: device memory rate and the IEEE float32 rate
 # outside the tensor cores (no TF32)
@@ -94,8 +115,11 @@ def check(cond, msg):
     print(f'  {"ok" if cond else "FAILED"}  {msg}', flush=True)
 
 
+T_START = time.perf_counter()
+
+
 def phase(name):
-    print(f'\n== {name}', flush=True)
+    print(f'\n== {name}  [{time.perf_counter() - T_START:.0f} s]', flush=True)
 
 
 def smi_line():
@@ -125,6 +149,11 @@ def nearest_err(w, w_ref):
     """Largest distance from an eigenvalue of w to its nearest in w_ref."""
     return float((w[..., :, None] - w_ref[..., None, :]).abs()
                  .amin(-1).amax())
+
+
+def set_dist(w, w_ref):
+    """Largest distance between two eigenvalue sets, either way."""
+    return max(nearest_err(w, w_ref), nearest_err(w_ref, w))
 
 
 def wave_matrices(torch, tp, order, lams, inc, dtype, dev):
@@ -731,6 +760,372 @@ def profile_order20(torch, tp, eps):
           'the order-20 profile shows the large-route kernels')
 
 
+def alt_kernel_checks(torch, ek, dev, A_rand, out):
+    """Phase 9: the stand-alone Schur stages and schur_ms(aed=False) against
+    their plain versions on random complex64 matrices."""
+    from torcwa_tpu_torch.ops import (eig_qr as eq, schur_ms as sm,
+                                      schur_qr_ms as sq)
+    from torcwa_tpu_torch.ops.hess_blocked import hessenberg_blocked
+    c128 = torch.complex128
+
+    H, Q = ek.hessenberg(A_rand)
+    T, Z, (hi, sw, rot) = ek.schur_qr_v2(H, Q, return_stats=True)
+    Tp, Zp, hip, swp, rotp = ek.schur_qr_v2_plain(H, Q)
+    w, wp = (torch.diagonal(x, dim1=-2, dim2=-1) for x in (T, Tp))
+    rho = float(wp.abs().max())
+    d = max(set_dist(w[b], wp[b]) for b in range(len(w))) / rho
+    q = [schur_quality(torch, A_rand[b], T[b], Z[b]) for b in range(len(w))]
+    res, orth = max(x[0] for x in q), max(x[1] for x in q)
+    print(f'-- schur_qr_v2 B={A_rand.shape[0]} n={A_rand.shape[-1]}: sweeps '
+          f'kernel {sw.tolist()} plain {swp.tolist()}, rotations '
+          f'{rot.tolist()} / {rotp.tolist()}; eigenvalue sets differ by '
+          f'{d:.2e} of the spectral radius; residual {res:.2e}, unitarity '
+          f'{orth:.2e}')
+    check(bool((hi == 0).all()) and bool((hip == 0).all()),
+          'schur_qr_v2: every lane converged, kernel and plain')
+    check(d <= 1e-4, 'schur_qr_v2: kernel == plain eigenvalues <= 1e-4')
+    check(res <= 1e-5 and orth <= 1e-5 and all(x[2] for x in q),
+          'schur_qr_v2: Schur residual and unitarity <= 1e-5, T triangular')
+    check(abs(int(sw.max()) - int(swp.max())) <= 0.3 * int(swp.max()),
+          'schur_qr_v2: sweeps within 30% of plain')
+    T1, _, (hi1, sw1, _) = ek.schur_qr_v2(H, Q, max_iter_factor=1,
+                                          return_stats=True)
+    check(bool((hi1 > 0).all())
+          and bool(torch.isfinite(torch.view_as_real(T1)).all()),
+          'schur_qr_v2 out of budget: handed back unpoisoned (no NaN)')
+
+    for n, m in ((64, 8), (200, 16)):
+        A = rand_c64(torch, n, n, dev)
+        H1, Q1 = ek.hessenberg(A[None].contiguous())
+        T, Z, st = sq.schur_qr_ms(H1[0], Q1[0], m=m, return_stats=True)
+        t0 = time.perf_counter()
+        Tp, Zp, stp = sq.schur_qr_ms_plain(H1[0], Q1[0], m=m,
+                                           return_stats=True)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        st, stp = [int(x) for x in st], [int(x) for x in stp]
+        w, wp = torch.diagonal(T), torch.diagonal(Tp)
+        w_ref = torch.linalg.eigvals(A.to(c128))
+        rho = float(w_ref.abs().max())
+        d = set_dist(w, wp) / rho
+        do = set_dist(w.to(c128), w_ref) / rho
+        res, orth, tri = schur_quality(torch, A, T, Z)
+        print(f'-- schur_qr_ms n={n} m={m}: (hi, sweeps, rotations) kernel '
+              f'{st} plain {stp} in {secs:.1f} s; eigenvalue sets differ by '
+              f'{d:.2e} of the spectral radius, from complex128 LAPACK by '
+              f'{do:.2e}; residual {res:.2e}, unitarity {orth:.2e}')
+        check(st[0] == 0 and stp[0] == 0,
+              f'schur_qr_ms n={n}: kernel and plain converged')
+        check(d <= 1e-4 and do <= 1e-4, f'schur_qr_ms n={n}: kernel == plain '
+              '== complex128 eigenvalues <= 1e-4')
+        check(res <= 1e-5 and orth <= 1e-5 and tri, f'schur_qr_ms n={n}: '
+              'Schur residual and unitarity <= 1e-5, T triangular')
+        check(0.5 * stp[1] <= st[1] <= 2 * stp[1]
+              and abs(st[2] - stp[2]) <= 0.2 * stp[2],
+              f'schur_qr_ms n={n}: sweeps within 2x and rotations within 20% '
+              'of plain')
+    T1, _, st1 = sq.schur_qr_ms(H1[0], Q1[0], m=16, max_iter_factor=-100,
+                                return_stats=True)
+    check(int(st1[0]) > 0 and bool(torch.isnan(torch.diagonal(T1)).all()),
+          'schur_qr_ms with a negative budget: NaN eigenvalues')
+
+    A = rand_c64(torch, N_MID, 300, dev)
+    H, Q = hessenberg_blocked(A, panel=32)
+    cfg = dict(m=8, kw=24, wb=128, aed=False)
+    T, Z, st = sm.schur_ms(H, Q, return_stats=True, **cfg)
+    t0 = time.perf_counter()
+    Tp, Zp, stp = sm.schur_ms_plain(H, Q, return_stats=True, **cfg)
+    torch.cuda.synchronize()
+    print(f'-- schur_ms n={N_MID} {cfg}: kernels (hi, sweeps, aed, skipped) '
+          f'{st[:4]}, plain {stp[:4]} in {time.perf_counter() - t0:.1f} s')
+    w, wp = torch.diagonal(T), torch.diagonal(Tp)
+    d = set_dist(w, wp) / float(wp.abs().max())
+    res, orth, tri = schur_quality(torch, A, T, Z)
+    print(f'  eigenvalue sets differ by {d:.2e} of the spectral radius; '
+          f'residual {res:.2e}, unitarity {orth:.2e}')
+    check(st[0] == 0 and stp[0] == 0 and st[2] == 0 and st[3] == 0,
+          f'schur_ms(aed=False) n={N_MID}: both converged, nothing deflated '
+          'by AED, no chase skipped')
+    check(d <= 1e-4 and res <= 1e-5 and orth <= 1e-5 and tri,
+          f'schur_ms(aed=False) n={N_MID}: kernels == plain eigenvalues <= '
+          '1e-4, residual and unitarity <= 1e-5')
+    check(0.5 * stp[1] <= st[1] <= 2 * stp[1],
+          f'schur_ms(aed=False) n={N_MID}: sweeps within 2x of plain')
+
+    A = rand_c64(torch, N_BIG, 640, dev)
+    H, Q = hessenberg_blocked(A)
+    m = eq.large_shifts(N_BIG)
+    cfg = dict(m=m, defl_mult=eq.LARGE_DEFL_MULT)
+    T, Z, st = sm.schur_ms(H, Q, aed=False, return_stats=True, **cfg)
+    _, _, sta = sm.schur_ms(H, Q, return_stats=True, **cfg)
+    w_ref = torch.linalg.eigvals(A.to(c128))
+    d = set_dist(torch.diagonal(T).to(c128), w_ref) \
+        / float(w_ref.abs().max())
+    res, orth, tri = schur_quality(torch, A, T, Z)
+    print(f'-- schur_ms(aed=False) n={N_BIG} m={m} wb={sm.window(m)} (plain '
+          f'version skipped: minutes at this size): (hi, sweeps, aed, '
+          f'skipped) {st[:4]}, with AED {sta[:4]}; eigenvalues vs complex128 '
+          f'{d:.2e}; residual {res:.2e}; unitarity {orth:.2e}')
+    # ~12x the sweeps of the AED run, every one a chase with its slab
+    # products through Z: the float32 round-off in Z grows with them (1.1e-5
+    # measured at 744 sweeps), so 2e-5 here where the AED run is held to 1e-5
+    check(st[0] == 0 and d <= 1e-4 and res <= 2e-5 and orth <= 2e-5 and tri,
+          f'schur_ms(aed=False) n={N_BIG}: converged, eigenvalues <= 1e-4, '
+          'residual and unitarity <= 2e-5')
+    check(sta[0] == 0 and 2 * sta[1] <= st[1],
+          f'schur_ms n={N_BIG}: AED needs at least 2x fewer sweeps')
+    out.update(H640=H, Q640=Q, cfg640=cfg, sweeps640=(st[1], sta[1]))
+
+
+def alt_path(torch, tp, ek, dev, A6, H6, Q6, eps32, out):
+    """Phase 10: the composed eig through the stand-alone stages at full
+    width, and one order-(7, 7) solve through schur_qr_ms."""
+    from torcwa_tpu_torch.ops import eig_qr as eq, schur_qr_ms as sq
+    c128 = torch.complex128
+    inc = math.radians(WELL_POSED_DEG)
+
+    def eig_checks(label, A, w, V):
+        """Eigenvalues against the complex128 oracle and the eigen-residual
+        after the refinement, both relative."""
+        ew = 0.
+        for b in range(A.shape[0]):
+            w_ref = torch.linalg.eigvals(A[b].to(c128))
+            ew = max(ew, set_dist(w[b].to(c128), w_ref)
+                     / float(w_ref.abs().max()))
+        r = float(((A @ V - V * w[..., None, :]).abs().amax((-2, -1))
+                   / A.abs().amax((-2, -1))).max())
+        print(f'  {label}: eigenvalues vs complex128 torch.linalg.eig '
+              f'{ew:.2e} of the spectral radius; max|A V - V w| / max|A| = '
+              f'{r:.2e} after the refinement')
+        check(ew <= 1e-4, f'{label}: eigenvalues within 1e-4 of the '
+              'spectral radius of the complex128 oracle')
+        check(r <= 1e-4, f'{label}: eigen-residual after refinement <= 1e-4')
+
+    # schur_qr_v2 on the order-6 batch
+    B6, n6 = A6.shape[0], A6.shape[-1]
+    label = f'hessenberg -> schur_qr_v2 -> tri_vectors, B={B6} n={n6}'
+    ek.reset_launch_counts()
+    w, V = eq.eig_small(A6, ek.schur_qr_v2)
+    torch.cuda.synchronize()
+    lv = dict(ek.LAUNCHES)
+    print(f'-- {label}: launches {lv}')
+    check(lv['schur_qr_v2'] == 1 and lv['hessenberg'] == 1
+          and lv['tri_vectors'] == 1 and lv['schur_qr'] == 0,
+          'the composed eig launched hessenberg, schur_qr_v2 and tri_vectors '
+          'once each and schur_qr not at all')
+    out['launches'] = {'schur_qr_v2': lv['schur_qr_v2']}
+    T, Z, (hi, sw, rot) = ek.schur_qr_v2(H6, Q6, return_stats=True)
+    print(f'  sweeps {sw.tolist()}, rotations {rot.tolist()}')
+    check(bool((hi == 0).all()), 'schur_qr_v2: every order-6 lane converged')
+    eig_checks('schur_qr_v2, order 6', A6, w, V)
+    out['v2_rot'] = int(rot.sum())
+    # The plain version takes ~90 s for ONE of these lanes in full, so it
+    # meets the kernel at this shape twice.  First element by element after
+    # one sweep, on a random batch of the same shape: there a sweep is
+    # forward-stable and both make the same decisions (window, shift) from
+    # the same numbers.  On the wave matrices it is not: their Hessenberg
+    # subdiagonal falls to ~1e-5 max|A| (phase 3), each rotation is formed
+    # from such entries, and one sweep already differs at O(max|A|) between
+    # two float32 orders of summation while both stay backward-stable
+    Ar = torch.stack([rand_c64(torch, n6, 100 + b, dev) for b in range(B6)])
+    Hr, Qr = ek.hessenberg(Ar)
+    T1, Z1, _ = ek.schur_qr_v2(Hr, Qr, max_iters=1, return_stats=True)
+    T1p, Z1p = ek.schur_qr_v2_plain(Hr, Qr, max_iters=1)[:2]
+    a2 = float(torch.linalg.matrix_norm(Ar, ord=2).min())
+    dT, dZ = float((T1 - T1p).abs().max()), float((Z1 - Z1p).abs().max())
+    print(f'  one sweep on a random batch, B={B6} n={n6}: max|T - T_plain| = '
+          f'{dT:.3e} ({dT / a2:.2e} ||A||_2), max|Z - Z_plain| = {dZ:.3e}')
+    check(dT <= 1e-4 * a2 and dZ <= 1e-4,
+          'schur_qr_v2, one sweep: kernel == plain element-wise, T within '
+          '1e-4 ||A||_2, Z within 1e-4')
+    out['err_v2'] = dT
+    # Then on the wave matrices, on the same budget of sweeps.  Round-off soon
+    # decides which subdiagonal deflates first, so the two take different
+    # paths (one lane in full: 825 against 1228 sweeps, the same
+    # eigenvalues) and are not compared with each other: each must hold a unitary Z whose
+    # similarity Z^H A Z is upper Hessenberg with T as its upper triangle
+    # (an unfinished T has lost its subdiagonal), and what it has deflated
+    # must be eigenvalues of A
+    w_ref = torch.linalg.eigvals(A6.to(c128))
+    rho = float(w_ref.abs().max())
+    afro = float(torch.linalg.matrix_norm(A6).min())
+    eye = torch.eye(n6, dtype=A6.dtype, device=dev)
+
+    def partial_state(Tb, Zb, hib):
+        Hs = (Zb.mH.to(c128) @ A6.to(c128) @ Zb.to(c128))
+        below = float(torch.linalg.matrix_norm(torch.tril(Hs, -2)).max())
+        upper = float(torch.linalg.matrix_norm(torch.triu(Hs) - Tb).max())
+        orth = float((Zb.mH @ Zb - eye).abs().max())
+        dw = max(nearest_err(torch.diagonal(Tb[b])[int(hib[b]) + 1:]
+                             .to(c128), w_ref[b]) if int(hib[b]) < n6 - 1
+                 else 0. for b in range(B6))
+        return below / afro, upper / afro, orth, dw / rho, \
+            int((n6 - 1 - hib).sum())
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    ev[0].record()
+    Tk, Zk, (hik, swk, rotk) = ek.schur_qr_v2(H6, Q6, max_iters=V2_BUDGET,
+                                              return_stats=True)
+    ev[1].record()
+    ev[2].record()
+    Tp, Zp, hip, swp, rotp = ek.schur_qr_v2_plain(H6, Q6,
+                                                  max_iters=V2_BUDGET)
+    ev[3].record()
+    ev[3].synchronize()
+    out['v2_budget_ms'] = (ev[0].elapsed_time(ev[1]),
+                           ev[2].elapsed_time(ev[3]))
+    out['v2_budget_rot'] = int(rotk.sum())
+    pk, pp = partial_state(Tk, Zk, hik), partial_state(Tp, Zp, hip)
+    print(f'  the first {V2_BUDGET} sweeps at B={B6} n={n6}: kernel '
+          f'{out["v2_budget_ms"][0]:.1f} ms, plain '
+          f'{out["v2_budget_ms"][1]:.1f} ms; rotations {int(rotk.sum())} / '
+          f'{int(rotp.sum())}; (below the subdiagonal of Z^H A Z, its upper '
+          f'triangle against T, unitarity of Z, deflated eigenvalues against '
+          f'complex128, eigenvalues deflated) kernel '
+          f'({pk[0]:.2e}, {pk[1]:.2e}, {pk[2]:.2e}, {pk[3]:.2e}, {pk[4]}) '
+          f'plain ({pp[0]:.2e}, {pp[1]:.2e}, {pp[2]:.2e}, {pp[3]:.2e}, '
+          f'{pp[4]})')
+    check(bool((swk == V2_BUDGET).all()) and bool((swp == V2_BUDGET).all())
+          and 0.5 * pp[4] <= pk[4] <= 2 * pp[4]
+          and 0.5 * int(rotp.sum()) <= int(rotk.sum()) <= 2 * int(rotp.sum()),
+          f'schur_qr_v2, {V2_BUDGET} sweeps: kernel and plain deflate and '
+          'rotate within 2x of each other')
+    check(max(pk[:3]) <= 1e-5 and pk[3] <= 1e-4 and max(pp[:3]) <= 1e-5
+          and pp[3] <= 1e-4,
+          f'schur_qr_v2, {V2_BUDGET} sweeps: kernel and plain each keep a '
+          'unitary Hessenberg similarity with T its upper triangle (1e-5) '
+          'and deflate eigenvalues of A (1e-4)')
+
+    # schur_qr_ms on one wave matrix at orders 6, 7, 8
+    stage = eq.lane_by_lane(sq.schur_qr_ms, m=MS_M)
+    out['ms'] = {}
+    for order in (6, 7, 8):
+        _, Ao = wave_matrices(torch, tp, (order, order), LAM_L, inc,
+                              torch.float32, dev)
+        Ao = Ao.contiguous()
+        n = Ao.shape[-1]
+        print(f'-- hessenberg -> schur_qr_ms (m={MS_M}) -> tri_vectors, one '
+              f'wave matrix, order {order}, n={n}, {LAM_L[0]} nm, '
+              f'{WELL_POSED_DEG} deg')
+        H, Q = ek.hessenberg(Ao)
+        T, Z, st = sq.schur_qr_ms(H[0], Q[0], m=MS_M, return_stats=True)
+        st = [int(x) for x in st]
+        res, orth, tri = schur_quality(torch, Ao[0], T, Z)
+        print(f'  (hi, sweeps, rotations) {st}; Schur residual {res:.2e}, '
+              f'unitarity {orth:.2e}')
+        check(st[0] == 0 and tri and res <= 1e-5 and orth <= 1e-5,
+              f'schur_qr_ms n={n}: converged, Schur residual and unitarity '
+              '<= 1e-5')
+        w, V = eq.eig_small(Ao, stage)
+        eig_checks(f'schur_qr_ms, order {order}', Ao, w, V)
+        out['ms'][n] = dict(A=Ao, H=H[0], Q=Q[0], st=st)
+        if order == 6:
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            Tp, Zp, stp = sq.schur_qr_ms_plain(H[0], Q[0], m=MS_M,
+                                               return_stats=True)
+            ev[1].record()
+            ev[1].synchronize()
+            out['ms_plain_ms'] = ev[0].elapsed_time(ev[1])
+            stp = [int(x) for x in stp]
+            dw = set_dist(torch.diagonal(T), torch.diagonal(Tp))
+            rho = float(torch.diagonal(Tp).abs().max())
+            resp, orthp, _ = schur_quality(torch, Ao[0], Tp, Zp)
+            print(f'  plain version in full: {out["ms_plain_ms"] / 1e3:.1f} '
+                  f's, (hi, sweeps, rotations) {stp}; eigenvalue sets differ '
+                  f'by {dw / rho:.2e} of the spectral radius; residual '
+                  f'{resp:.2e}, unitarity {orthp:.2e}')
+            check(stp[0] == 0 and dw <= 1e-4 * rho
+                  and 0.5 * stp[1] <= st[1] <= 2 * stp[1],
+                  f'schur_qr_ms n={n}: kernel == plain eigenvalues <= 1e-4, '
+                  'sweeps within 2x')
+            out['err_ms'] = dw
+
+    # one order-(7, 7) solve with the small route's Schur stage swapped
+    order = (7, 7)
+    keep = eq.SMALL_SCHUR
+    eq.SMALL_SCHUR = stage
+    try:
+        ek.reset_launch_counts()
+        T_k, g_k = fwd_grad(torch, tp, eps32, LAM_L, order, inc, 'kernels')
+        torch.cuda.synchronize()
+        lm = dict(ek.LAUNCHES)
+    finally:
+        eq.SMALL_SCHUR = keep
+    print(f'-- order-7 solve (2N = 450) through schur_qr_ms: launches {lm}')
+    check(lm['schur_qr_ms'] >= 1 and lm['schur_qr'] == 0
+          and lm['schur_ms'] == 0,
+          f'schur_qr_ms launched on the order-7 path ({lm["schur_qr_ms"]}), '
+          'schur_qr and schur_ms not')
+    out['launches']['schur_qr_ms'] = lm['schur_qr_ms']
+    T_o, g_o = fwd_grad(torch, tp, eps32.double(), LAM_L, order, inc,
+                        'torch')
+    dT = float((T_k.double() - T_o).abs().max())
+    cos_k = cosine(g_k, g_o)
+    print(f'  |t_xx|^2 through schur_qr_ms {T_k.tolist()} oracle '
+          f'{T_o.tolist()}; raster-gradient cosine {cos_k:.6f}')
+    check(dT <= 1e-4, f'order 7 through schur_qr_ms: |t_xx|^2 vs oracle '
+          f'{dT:.2e} <= 1e-4')
+    check(bool(torch.isfinite(g_k).all()) and cos_k >= 0.99,
+          f'order 7 through schur_qr_ms: raster gradient finite, cosine '
+          f'{cos_k:.6f} >= 0.99')
+
+
+def alt_times(torch, ek, smi, H6, Q6, out, times, bounds):
+    """Phase 11: the stand-alone stages beside schur_qr and the routes."""
+    from torcwa_tpu_torch.ops import (eig_qr as eq, schur_ms as sm,
+                                      schur_qr_ms as sq)
+    B6, n6 = H6.shape[0], H6.shape[-1]
+    t_qr = cuda_ms(torch, lambda: ek.schur_qr(H6, Q6), reps=3)
+    t_v2 = cuda_ms(torch, lambda: ek.schur_qr_v2(H6, Q6), reps=3)
+    full_v2 = bound(4 * B6 * n6 * n6 * C64, out['v2_rot'] * 2 * n6 * 20)
+    print(f'  the (8, 338, 338) order-6 batch, whole Schur form: schur_qr_v2 '
+          f'{t_v2:.3f} ms (bound {full_v2[0]:.4f} ms by {full_v2[1]}, '
+          f'{out["v2_rot"]} rotations), schur_qr {t_qr:.3f} ms [{smi}]')
+    # the record holds the first V2_BUDGET sweeps, which the plain version
+    # can be timed on; H, Q read, T, Z written; this run's rotations x their
+    # 2n element pairs x 20 flops
+    times['schur_qr_v2'] = (*out['v2_budget_ms'],
+                            f'B=8 n=338, the first {V2_BUDGET} sweeps')
+    bounds['schur_qr_v2'] = bound(4 * B6 * n6 * n6 * C64,
+                                  out['v2_budget_rot'] * 2 * n6 * 20)
+    out['v2_full'] = (t_v2, full_v2)
+    stage = eq.lane_by_lane(sq.schur_qr_ms, m=MS_M)
+    print('  one wave matrix (500 nm, 10 deg), median of 3; the small and '
+          'the large route of eig_qr on the same matrices stand in phase 7:')
+    for n, rec in out['ms'].items():
+        A, H, Q = rec['A'], rec['H'], rec['Q']
+        H1, Q1 = H[None].contiguous(), Q[None].contiguous()
+        t8 = cuda_ms(torch, lambda: sq.schur_qr_ms(H, Q, m=8), reps=3)
+        t16 = cuda_ms(torch, lambda: sq.schur_qr_ms(H, Q, m=MS_M), reps=3)
+        s8 = [int(x) for x in sq.schur_qr_ms(H, Q, m=8,
+                                             return_stats=True)[2]]
+        t1 = cuda_ms(torch, lambda: ek.schur_qr(H1, Q1), reps=3)
+        t2 = cuda_ms(torch, lambda: ek.schur_qr_v2(H1, Q1), reps=3)
+        te = cuda_ms(torch, lambda: eq.eig_small(A, stage), reps=3)
+        tl = cuda_ms(torch, lambda: torch.linalg.eig(A), reps=3)
+        b = bound(4 * n * n * C64, rec['st'][2] * 2 * n * 20)
+        print(f'    n = {n}: schur_qr_ms m={MS_M} {t16:.1f} ms '
+              f'({rec["st"][1]} sweeps, {rec["st"][2]} rotations, bound '
+              f'{b[0]:.4f} ms by {b[1]}), m=8 {t8:.1f} ms ({s8[1]} sweeps); '
+              f'schur_qr on the same H, Q {t1:.1f} ms, schur_qr_v2 {t2:.1f} '
+              f'ms; the composed eig through schur_qr_ms {te:.1f} ms; '
+              f'library figure torch.linalg.eig complex64 {tl:.1f} ms '
+              f'(all stages) [{smi}]')
+        if n == n6:
+            times['schur_qr_ms'] = (t16, out['ms_plain_ms'],
+                                    f'n={n} m={MS_M}, one wave matrix; '
+                                    'plain: one run, in phase 10')
+            bounds['schur_qr_ms'] = b
+    H, Q, cfg = out['H640'], out['Q640'], out['cfg640']
+    t_off = cuda_ms(torch, lambda: sm.schur_ms(H, Q, aed=False, **cfg),
+                    reps=3)
+    t_on = cuda_ms(torch, lambda: sm.schur_ms(H, Q, **cfg), reps=3)
+    print(f'  schur_ms at n = {N_BIG}, m = {cfg["m"]}: aed=False {t_off:.1f} '
+          f'ms in {out["sweeps640"][0]} sweeps, aed=True {t_on:.1f} ms in '
+          f'{out["sweeps640"][1]} sweeps [{smi}]')
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -943,7 +1338,7 @@ def main():
     print('  the two routes of eig_qr on one wave matrix (500 nm, 10 deg), '
           'median of 3:')
     keep = eq.LARGE_MIN_N
-    for order in (6, 8, 10):
+    for order in (6, 7, 8, 10):
         _, Ao = wave_matrices(torch, tp, (order, order), LAM_L, inc,
                               torch.float32, dev)
         Ao = Ao.contiguous()
@@ -959,12 +1354,32 @@ def main():
     profile_sweep(torch, tp, eps32)
     profile_order20(torch, tp, o20['eps'])
 
+    phase('9. the stand-alone Schur stages against their plain versions')
+    alt = {}
+    alt_kernel_checks(torch, ek, dev, A_rand, alt)
+
+    phase('10. the composed eig through the stand-alone stages (orders 6 to '
+          '8) and one order-7 solve through schur_qr_ms')
+    alt_path(torch, tp, ek, dev, A6c, H6, Q6, eps32, alt)
+    launches.update(alt['launches'])
+    check(f32_precision_pinned(), 'IEEE f32 still pinned after the '
+          'stand-alone stages')
+
+    phase('11. times of the stand-alone stages (CUDA events, median of 3)')
+    print(f'card: {smi}')
+    alt_times(torch, ek, smi, H6, Q6, alt, times, bounds)
+    for k in ALT:
+        tk, tpl, shape = times[k]
+        print(f'  {k}: kernel {tk:.3f} ms, plain {tpl:.3f} ms, bound '
+              f'{bounds[k][0]:.4f} ms by {bounds[k][1]} ({shape}) [{smi}]')
+
     if FAILURES:
         print(f'\n{len(FAILURES)} check(s) failed:', *FAILURES, sep='\n  ')
         return 1
     errs = {'hessenberg': rec_main['hess'], 'schur_qr': rec_main['qr'],
             'tri_vectors': rec_main['vec_sep'], 'schur_ms': o20['err_ms'],
-            'tri_vectors_blocked': o20['err_vec']}
+            'tri_vectors_blocked': o20['err_vec'], 'schur_qr_v2': alt['err_v2'],
+            'schur_qr_ms': alt['err_ms']}
     kernels = [{'name': k, 'route': 'cuda', 'source': SOURCES[k],
                 'replaces': REPLACES[k], 'launches': launches[k],
                 'max_abs_err': errs[k], 'ms': times[k][0],
@@ -974,6 +1389,10 @@ def main():
     kernels[list(REPLACES).index('schur_ms')].update(
         work='the first two sweeps at n = 3362', full_ms=ms_ms,
         full_bound_ms=full_bound[0], full_bound_by=full_bound[1])
+    kernels[list(REPLACES).index('schur_qr_v2')].update(
+        work=f'the first {V2_BUDGET} sweeps at B = 8, n = 338',
+        full_ms=alt['v2_full'][0], full_bound_ms=alt['v2_full'][1][0],
+        full_bound_by=alt['v2_full'][1][1])
     print(smi)
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {

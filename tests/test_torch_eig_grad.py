@@ -88,7 +88,7 @@ def test_gauge_invariant_gradient_matches_finite_differences():
 
 def _order1_pq():
     g = tp.geometry(Lx=300., Ly=300., nx=32, ny=32, edge_sharpness=500.,
-                    dtype=torch.float64)
+                    dtype=torch.float64, device='cpu')
     occ = g.circle(95., 150., 150.)
     eps = occ * 4.2 + (1. - occ)
     freq = torch.tensor([1 / 473.], dtype=torch.float64)

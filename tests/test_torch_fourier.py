@@ -53,21 +53,22 @@ def test_geometry_matches_jax(shape):
     gj = tt.geometry(Lx=300., Ly=300., nx=48, ny=40, edge_sharpness=500.,
                      dtype=jnp.float64)
     gt = tp.geometry(Lx=300., Ly=300., nx=48, ny=40, edge_sharpness=500.,
-                     dtype=torch.float64)
+                     dtype=torch.float64, device='cpu')
     ref = np.asarray(getattr(gj, shape)(*args))
     got = getattr(gt, shape)(*args).numpy()
     assert np.abs(got - ref).max() <= TOL
 
 
-def test_geometry_boolean_ops_and_rcwa_geo():
+def test_geometry_boolean_ops_and_rcwa_geo(monkeypatch):
     gt = tp.geometry(Lx=300., Ly=300., nx=32, ny=32, edge_sharpness=500.,
-                     dtype=torch.float64)
+                     dtype=torch.float64, device='cpu')
     a = gt.circle(90., 150., 150.)
     b = gt.rectangle(100., 200., 150., 150.)
     tp.rcwa_geo.Lx = tp.rcwa_geo.Ly = 300.
     tp.rcwa_geo.nx = tp.rcwa_geo.ny = 32
     tp.rcwa_geo.edge_sharpness = 500.
     tp.rcwa_geo.dtype = torch.float64
+    monkeypatch.setattr(tp.rcwa_geo, 'device', 'cpu')
     assert torch.equal(tp.rcwa_geo.circle(90., 150., 150.), a)
     assert torch.equal(gt.union(a, b), torch.maximum(a, b))
     assert torch.equal(gt.intersection(a, b), torch.minimum(a, b))

@@ -55,7 +55,7 @@ def test_simulate_txx_matches_jax(rd, tol):
                                  jnp.asarray(EPS_SUB, rd)))
            for lam in LAMS]
     cv = convert.from_jax_pairs(eps_grids=(eps[None], np.zeros_like(eps)[None]),
-                                spec=_spec())
+                                spec=_spec(), device='cpu')
     eig_kernels.reset_launch_counts()
     got = tp.simulate_txx(cv['spec'], torch.as_tensor(1 / LAMS.astype(rd)),
                           cv['eps_grids'][0], THICK, EPS_SUB).numpy()
@@ -96,7 +96,8 @@ def _port_grad(eps, inc):
     rd = eps.dtype.type
     cv = convert.from_jax_pairs(eps_grids=(eps[None], np.zeros_like(eps)[None]),
                                 thicknesses=np.array([THICK], rd),
-                                eps_in=(rd(EPS_SUB), rd(0.)), spec=_spec())
+                                eps_in=(rd(EPS_SUB), rd(0.)), spec=_spec(),
+                                device='cpu')
     er = cv['eps_grids'].real.clone().requires_grad_(True)
     S, intr = tp.solve_stack_pair(cv['spec'], torch.as_tensor(1 / LAMS.astype(rd)),
                                   inc, 0., er, cv['thicknesses'],
@@ -151,7 +152,7 @@ def test_two_layers_with_output_cladding_match_jax():
         eps_out=tuple(map(jnp.asarray, e_out))))(jnp.asarray(eps))
     cv = convert.from_jax_pairs(eps_grids=(eps, np.zeros_like(eps)),
                                 thicknesses=thick, eps_in=e_in,
-                                eps_out=e_out, spec=spec)
+                                eps_out=e_out, spec=spec, device='cpu')
     S, _ = tp.solve_stack_pair(cv['spec'], 1 / 530., 0.1, 0.3,
                                cv['eps_grids'], cv['thicknesses'],
                                eps_in=cv['eps_in'], eps_out=cv['eps_out'])
@@ -165,7 +166,8 @@ def test_two_layers_with_output_cladding_match_jax():
                                     avoid_pinv_instability=True)])
 def test_unported_options_raise(kw):
     cv = convert.from_jax_pairs(
-        eps_grids=(np.ones((1, 8, 8)), np.zeros((1, 8, 8))), spec=_spec())
+        eps_grids=(np.ones((1, 8, 8)), np.zeros((1, 8, 8))), spec=_spec(),
+        device='cpu')
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         tp.solve_stack_pair(cv['spec'], 1 / 500., 0., 0., cv['eps_grids'],
                             [100.], eps_in=EPS_SUB, **kw)

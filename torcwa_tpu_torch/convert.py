@@ -4,7 +4,8 @@ The JAX package takes complex values as split-real (re, im) pairs; the
 port takes native complex tensors.  :func:`from_jax_pairs` turns the same
 numpy inputs into the port's arguments so that both packages compute the
 same thing.  It reads ``StackSpec`` by its fields and imports nothing of
-JAX.
+JAX.  The tensors land on ``device``: the CUDA card unless the caller passes
+``device='cpu'``.
 """
 
 import numpy as np
@@ -15,7 +16,7 @@ from .fmm import StackSpec
 __all__ = ['from_jax_pairs', 'to_complex']
 
 
-def to_complex(re, im=None, device='cpu'):
+def to_complex(re, im=None, device='cuda'):
     """numpy (re, im) -> complex tensor (complex64 for float32 parts,
     complex128 otherwise)."""
     re = np.asarray(re)
@@ -25,7 +26,7 @@ def to_complex(re, im=None, device='cpu'):
 
 
 def from_jax_pairs(eps_grids=None, thicknesses=None, eps_in=None,
-                   eps_out=None, spec=None, device='cpu'):
+                   eps_out=None, spec=None, device='cuda'):
     """Convert JAX-package inputs; only the given ones appear in the result.
 
     Args:

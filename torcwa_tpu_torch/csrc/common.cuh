@@ -1,7 +1,7 @@
 // Shared helpers of the eig kernels: complex64 arithmetic on interleaved
 // float2 (x = real, y = imaginary, the layout of torch.complex64) and
-// block-wide reductions, and the Givens rotation and Wilkinson shift the QR
-// kernels share.
+// block-wide reductions, and the deflation test, Givens rotation and
+// Wilkinson shift the QR kernels share.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -67,6 +67,37 @@ __device__ float block_reduce(float v, float* red) {
   const float r = red[32];
   __syncthreads();  // red may be reused right after
   return r;
+}
+
+// Max of an int over the block; every thread gets the result.  `red` is a
+// shared buffer of at least 33 ints.  Contains barriers.
+__device__ __forceinline__ int block_max_int(int v, int* red) {
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  const int nw = (blockDim.x + 31) >> 5;
+  for (int o = 16; o > 0; o >>= 1)
+    v = max(v, __shfl_xor_sync(0xffffffffu, v, o));
+  if (lane == 0) red[wid] = v;
+  __syncthreads();
+  if (wid == 0) {
+    int t = lane < nw ? red[lane] : 0;
+    for (int o = 16; o > 0; o >>= 1)
+      t = max(t, __shfl_xor_sync(0xffffffffu, t, o));
+    if (lane == 0) red[32] = t;
+  }
+  __syncthreads();
+  const int r = red[32];
+  __syncthreads();
+  return r;
+}
+
+// Subdiagonal entry `sub` between the diagonal entries d0, d1 is alive
+// (not deflated): |sub| > max(mult eps (|d0| + |d1|), 1e-31).
+__device__ __forceinline__ bool sub_alive(float2 d0, float2 d1, float2 sub,
+                                          float mult) {
+  const float th = fmaxf(mult * TORCWA_EPS_F32 *
+                             (sqrtf(c_abs2(d0)) + sqrtf(c_abs2(d1))),
+                         TORCWA_SMLNUM_F32);
+  return c_abs2(sub) > th * th;
 }
 
 struct Givens {

@@ -14,7 +14,9 @@
 //    to Hessenberg form by Householder reflectors;
 //  * shifts: the m undeflated window eigenvalues closest to the new corner,
 //    deflated lanes last; on an exceptional sweep the perturbed trailing
-//    undeflated diagonals;
+//    undeflated diagonals; without AED (aed=False) the eigenvalues of the
+//    trailing m x m block of the active block instead, ordered by distance
+//    to H[hi, hi] (ms_shifts.cuh), and no deflation beyond the band scan's;
 //  * chase: m spacing-2 single-shift bulges through overlapping diagonal
 //    windows; bulge i sits at row k = t - 2 i at step t and enters at
 //    k = lo with (H[lo,lo] - sigma_i, H[lo+1,lo]).
@@ -36,6 +38,8 @@
 //    (~133 KB at kw = 64).  It writes the transformed diagonal block and
 //    spike column back to H itself, with the known zeros exact, and the
 //    kwe x kwe transform Lp for the off-diagonal slabs.
+//  * ms_trailing_shifts (aed=False): one warp, the m x m block in shared
+//    memory; it fills `info` and `shifts` where ms_aed would.
 //  * ms_chase: one block per window; a window of up to 169 rows is staged
 //    in shared memory for the chase and written back at its end, a wider
 //    one is worked in device memory.  At a step the m rotations touch
@@ -60,7 +64,7 @@
 // AED is the serial mini-Schur in one block; the slab products are the
 // only throughput part (~2 n wb^2 complex multiply-adds per window).
 
-#include "common.cuh"
+#include "ms_shifts.cuh"
 
 namespace {
 
@@ -77,33 +81,6 @@ constexpr int kKT = 8;        // depth of a staged tile of the transform
 
 // info[]: what the host reads back once per sweep
 enum { I_LO = 0, I_HI, I_S, I_KWE, I_HINEW, I_KU, I_HIM, I_MINI_IT, I_COUNT };
-
-__device__ __forceinline__ int block_max_int(int v, int* red) {
-  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-  const int nw = (blockDim.x + 31) >> 5;
-  for (int o = 16; o > 0; o >>= 1)
-    v = max(v, __shfl_xor_sync(0xffffffffu, v, o));
-  if (lane == 0) red[wid] = v;
-  __syncthreads();
-  if (wid == 0) {
-    int t = lane < nw ? red[lane] : 0;
-    for (int o = 16; o > 0; o >>= 1)
-      t = max(t, __shfl_xor_sync(0xffffffffu, t, o));
-    if (lane == 0) red[32] = t;
-  }
-  __syncthreads();
-  const int r = red[32];
-  __syncthreads();
-  return r;
-}
-
-__device__ __forceinline__ bool sub_alive(float2 d0, float2 d1, float2 sub,
-                                          float mult) {
-  const float th = fmaxf(mult * TORCWA_EPS_F32 *
-                             (sqrtf(c_abs2(d0)) + sqrtf(c_abs2(d1))),
-                         TORCWA_SMLNUM_F32);
-  return c_abs2(sub) > th * th;
-}
 
 // ---------------------------------------------------------------------------
 // band scan
@@ -365,6 +342,25 @@ ms_aed(float2* __restrict__ H, int n, int* __restrict__ info, int exc, int m,
 }
 
 // ---------------------------------------------------------------------------
+// shifts without AED: eigenvalues of the trailing m x m block
+// ---------------------------------------------------------------------------
+
+__global__ void __launch_bounds__(32)
+ms_trailing_shifts(const float2* __restrict__ H, int n, int* __restrict__ info,
+                   int exc, int m, float2* __restrict__ shifts) {
+  extern __shared__ float2 sm[];
+  const int lo = info[I_LO], hi = info[I_HI];
+  if (threadIdx.x == 0) {
+    info[I_S] = 0; info[I_KWE] = 0; info[I_HINEW] = hi; info[I_KU] = 0;
+    info[I_HIM] = 0; info[I_MINI_IT] = 0;
+  }
+  if (hi <= 0) return;
+  float2* B = sm;
+  float* dist = (float*)(sm + shift_block_elems(m));
+  trailing_shifts_warp(H, n, lo, hi, m, exc != 0, B, dist, shifts);
+}
+
+// ---------------------------------------------------------------------------
 // bulge chase through one window
 // ---------------------------------------------------------------------------
 
@@ -607,6 +603,19 @@ extern "C" int torcwa_ms_aed_c64(void* H, int n, void* info, int exc, int m,
   ms_aed<<<1, kAedThreads, smem, (cudaStream_t)stream>>>(
       (float2*)H, n, (int*)info, exc, m, kw, defl_mult, (float2*)Lp,
       (float2*)shifts);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int torcwa_ms_trailing_shifts_c64(const void* H, int n, void* info,
+                                             int exc, int m, void* shifts,
+                                             void* stream) {
+  if (m < 1 || m > kMaxM) return (int)cudaErrorInvalidValue;
+  const size_t smem =
+      shift_block_elems(m) * sizeof(float2) + (size_t)m * sizeof(float);
+  cudaError_t err = set_smem(ms_trailing_shifts, smem);
+  if (err != cudaSuccess) return (int)err;
+  ms_trailing_shifts<<<1, 32, smem, (cudaStream_t)stream>>>(
+      (const float2*)H, n, (int*)info, exc, m, (float2*)shifts);
   return (int)cudaGetLastError();
 }
 

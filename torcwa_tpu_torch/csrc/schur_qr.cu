@@ -13,8 +13,8 @@
 //    the window has not shrunk for kCplxStall sweeps (with real eps at
 //    normal incidence A = PQ is exactly real, and an eager complex branch
 //    costs ~15% more sweeps);
-//  * budget max_iters sweeps; stats[b] = (final window bottom, sweeps),
-//    window bottom 0 meaning converged.  The wrapper NaN-poisons the
+//  * budget max_iters sweeps; stats[b] = (final window bottom, sweeps,
+//    rotations applied), window bottom 0 meaning converged.  The wrapper NaN-poisons the
 //    diagonal of lanes that did not converge.
 // The TPU kernel's deferred-column accumulator W, the Z^T storage and the
 // prefix-bucket switch are TPU-shaped and are not carried over: each
@@ -31,6 +31,19 @@
 // not structurally zero; the round-off the bulge chase leaves on the
 // second subdiagonal is zeroed once per sweep.
 //
+// The same function serves a second entry point with other rules
+// (torcwa_schur_qr_v2_c64).  It replaces the TPU kernel
+// torcwa_tpu/ops/eig_qr_pallas.py::_kernel (public entries schur_qr_pallas
+// and schur_qr_pallas_batched), the "v2" masked-rotation QR: ONE window per
+// lane (the bottom-most alive run), deflation at eps (|d| + |d'|)
+// (multiplier 1), the complex Wilkinson branch always open (no stall gate),
+// the exceptional shift every 13th sweep, budget max_iters sweeps, the lower
+// triangle zeroed at the end; its wrapper hands T back unpoisoned.  The
+// masked full-matrix rotations, the rolls and the one-hot scalar reads of
+// that kernel are the TPU compiler's constraints, not the function: here the
+// rules are a template parameter of the kernel below and everything else is
+// shared, so the two entry points cannot drift apart in what they share.
+//
 // What bounds it on an H100: latency.  Every rotation is O(n) work behind
 // two block barriers and an L2 round trip, and a sweep starts with a
 // serial scan by one thread; the ~tens of thousands of rotations per
@@ -43,18 +56,30 @@
 namespace {
 
 constexpr int kThreads = 256;
-// The TPU kernel's rules (eig_qr_pallas.py: _NRUNS, _DEFL_MULT, _CPLX_STALL
-// and the exceptional-shift period); ops/eig_kernels.py holds the same
-// values for the plain version.
-constexpr int kRuns = 4;
-constexpr float kDeflMult = 4.f;
-constexpr int kCplxStall = 30;
 constexpr int kExcEvery = 13;
+// The TPU kernels' rules; ops/eig_kernels.py holds the same values for the
+// plain versions.  _kernel_acc (eig_qr_pallas.py: _NRUNS, _DEFL_MULT,
+// _CPLX_STALL):
+struct AccRules {
+  static constexpr int kRuns = 4;
+  static constexpr float kDeflMult = 4.f;
+  static constexpr int kCplxStall = 30;
+};
+// _kernel, the v2 QR: one window, multiplier 1, no stall gate
+struct V2Rules {
+  static constexpr int kRuns = 1;
+  static constexpr float kDeflMult = 1.f;
+  static constexpr int kCplxStall = 0;
+};
 
+template <typename R>
 __global__ void __launch_bounds__(kThreads)
 schur_qr_kernel(const float2* __restrict__ Hin, const float2* __restrict__ Zin,
                 float2* __restrict__ H, float2* __restrict__ Z,
                 int* __restrict__ stats, int n, int max_iters) {
+  constexpr int kRuns = R::kRuns;
+  constexpr float kDeflMult = R::kDeflMult;
+  constexpr int kCplxStall = R::kCplxStall;
   extern __shared__ unsigned char alive[];  // alive[c]: subdiagonal c+1,c
   __shared__ int s_lo[kRuns], s_hi[kRuns];
   __shared__ float2 s_shift[kRuns];
@@ -75,7 +100,7 @@ schur_qr_kernel(const float2* __restrict__ Hin, const float2* __restrict__ Zin,
   __syncthreads();
 
   int hi = n - 1, it = 0;
-  int stall = 0;  // meaningful in thread 0 only
+  int stall = 0, rot = 0;  // meaningful in thread 0 only
   while (hi > 0 && it < max_iters) {
     // ---- deflation flags on the live prefix ----
     for (int c = tid; c < hi; c += kThreads) {
@@ -113,6 +138,7 @@ schur_qr_kernel(const float2* __restrict__ Hin, const float2* __restrict__ Zin,
         s_lo[nr] = lo;
         s_hi[nr] = hr;
         s_shift[nr] = sh;
+        rot += hr - lo;
         ++nr;
         top = lo;
       }
@@ -175,9 +201,20 @@ schur_qr_kernel(const float2* __restrict__ Hin, const float2* __restrict__ Zin,
   for (int e = tid; e < nn; e += kThreads)
     if (e / n > e % n) H[e] = c_make(0.f, 0.f);
   if (tid == 0) {
-    stats[2 * blockIdx.x] = hi;
-    stats[2 * blockIdx.x + 1] = it;
+    stats[3 * blockIdx.x] = hi;
+    stats[3 * blockIdx.x + 1] = it;
+    stats[3 * blockIdx.x + 2] = rot;
   }
+}
+
+template <typename R>
+int launch(const void* Hin, const void* Zin, void* T, void* Z, void* stats,
+           int batch, int n, int max_iters, void* stream) {
+  if (batch <= 0 || n <= 0) return 0;
+  schur_qr_kernel<R><<<batch, kThreads, (size_t)n, (cudaStream_t)stream>>>(
+      (const float2*)Hin, (const float2*)Zin, (float2*)T, (float2*)Z,
+      (int*)stats, n, max_iters);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -185,9 +222,11 @@ schur_qr_kernel(const float2* __restrict__ Hin, const float2* __restrict__ Zin,
 extern "C" int torcwa_schur_qr_c64(const void* Hin, const void* Zin, void* T,
                                    void* Z, void* stats, int batch, int n,
                                    int max_iters, void* stream) {
-  if (batch <= 0 || n <= 0) return 0;
-  schur_qr_kernel<<<batch, kThreads, (size_t)n, (cudaStream_t)stream>>>(
-      (const float2*)Hin, (const float2*)Zin, (float2*)T, (float2*)Z,
-      (int*)stats, n, max_iters);
-  return (int)cudaGetLastError();
+  return launch<AccRules>(Hin, Zin, T, Z, stats, batch, n, max_iters, stream);
+}
+
+extern "C" int torcwa_schur_qr_v2_c64(const void* Hin, const void* Zin,
+                                      void* T, void* Z, void* stats, int batch,
+                                      int n, int max_iters, void* stream) {
+  return launch<V2Rules>(Hin, Zin, T, Z, stats, batch, n, max_iters, stream);
 }

@@ -1,0 +1,199 @@
+// Multishift complex Schur QR for ONE upper Hessenberg matrix, the whole
+// iteration in one launch: H = Z T Z^H with T upper triangular.
+//
+// Replaces the TPU kernel torcwa_tpu/ops/eig_qr_pallas_ms.py::_kernel_ms
+// (public entry schur_qr_pallas_ms) and keeps the rules that decide its
+// convergence and its answer:
+//  * deflation: subdiagonal k is dead when |h_k+1,k| <= max(eps (|h_kk| +
+//    |h_k+1,k+1|), 1e-31); the window bottom hi only moves up, the active
+//    block [lo, hi] is the bottom-most alive run;
+//  * shifts: the eigenvalues of the trailing m x m block of the active block
+//    ordered by distance to H[hi, hi], padding lanes last; after 13 sweeps
+//    without progress one exceptional sweep with the perturbed trailing
+//    diagonal (ms_shifts.cuh);
+//  * chase: m spacing-2 bulges over the whole active block; bulge i sits at
+//    row k = t - 2 i at step t, enters at k = lo with (H[lo,lo] - sigma_i,
+//    H[lo+1,lo]), and only bulges with lo + 2 i + 1 <= hi are alive; a
+//    bulge outside [lo, hi) is no rotation at all (pipeline fill and drain);
+//  * budget max_sweeps sweeps, counted as the TPU kernel counts them (the
+//    pass that finds the block closed included); stats = (final window
+//    bottom, sweeps, rotations applied), bottom 0 meaning converged.  The
+//    wrapper NaN-poisons the diagonal when the bottom is not 0.
+// Not carried over, because they serve the TPU's matrix unit and compiler:
+// the deferred-column accumulator W with its per-sweep prefix GEMMs and the
+// 256-bucket switch, the one-hot selection matmuls, the split-real planes,
+// the per-bulge scalar extraction by masked sums.  Rotations are applied to
+// H and Z directly, so no matrix product is left in the stage.
+//
+// Design: one thread block of 1024 threads for the matrix and the sweep loop
+// on the device: no host round trip per sweep, which is this kernel's point
+// beside schur_ms.  H and Z stay in device memory (0.9 MB each at n = 338,
+// resident in the L2 cache up to n ~ 1500); the m x m shift block, the
+// shifts and the bulge carries live in shared memory.  The band scan is two
+// block-wide max-reductions; warp 0 computes the shifts while the others
+// wait; a chase step is three phases behind block barriers: (1) threads
+// 0..m-1 form the step's rotations from the carries, (2) every row rotation,
+// (3) every column rotation of H.  A step's m rotations touch disjoint row
+// pairs and disjoint column pairs, and a row rotation covers columns
+// >= max(k - 1, lo) only, so that the bump a trailing bulge creates is never
+// smeared by the bulge ahead of it: then all rows before all columns equals
+// the bulges taken one after another, leading bulge first.
+// Z is held TRANSPOSED in this kernel (the wrapper hands Q^T in and takes
+// Z^T out): Z <- Z G^H on columns k, k+1 becomes a rotation of two rows of
+// Z^T, contiguous in memory, and joins phase (2).  With plain Z the column
+// pairs would be read at stride n, one 32-byte sector for every 16 bytes
+// used, which doubles the strided traffic of a step; H's own column pairs
+// (rows <= k + 2 only) remain strided.
+//
+// What bounds it on an H100: latency and one SM's path to the L2 cache.  The
+// ~n^2 (3..4) / 2 rotations come m at a time, each step ~m (3 n x 16 B of
+// rows + (k + 3) x 32 B of column sectors) behind three barriers, and only
+// one of 132 SMs works.  The design does nothing against that beyond the
+// transposed Z and the banded row range; a cluster of blocks per matrix, or
+// aggressive early deflation in the launch, is later work.
+
+#include "ms_shifts.cuh"
+
+namespace {
+
+constexpr int kThreads = 1024;
+constexpr int kExcStall = 13;
+
+__global__ void __launch_bounds__(kThreads)
+schur_qr_ms_kernel(float2* __restrict__ H, float2* __restrict__ Zt,
+                   long long* __restrict__ stats, int n, int m,
+                   int max_sweeps) {
+  extern __shared__ float2 blockB[];  // the m x m shift block
+  __shared__ int red[33];
+  __shared__ float s_c[kShiftMaxM], s_dist[kShiftMaxM];
+  __shared__ float2 s_s[kShiftMaxM], s_x[kShiftMaxM], s_y[kShiftMaxM];
+  __shared__ float2 s_shift[kShiftMaxM];
+  __shared__ unsigned char s_act[kShiftMaxM];
+  __shared__ unsigned long long s_rot;
+
+  const int tid = threadIdx.x;
+  if (tid == 0) s_rot = 0ull;
+  auto alive = [&](int c) {  // subdiagonal H[c+1, c]
+    return sub_alive(H[(size_t)c * n + c], H[(size_t)(c + 1) * n + c + 1],
+                     H[(size_t)(c + 1) * n + c], 1.f);
+  };
+
+  int hi = n - 1, it = 0, stall = 0;
+  while (hi > 0 && it < max_sweeps) {
+    // ---- band scan: the active block [lo, hi] ----
+    const int hi_prev = hi;
+    int best = 0;
+    for (int c = tid; c < hi_prev; c += kThreads)
+      if (alive(c)) best = max(best, c + 1);
+    hi = block_max_int(best, red);
+    best = 0;
+    for (int g = tid + 1; g <= hi; g += kThreads)
+      if (!alive(g - 1)) best = max(best, g);
+    const int lo = block_max_int(best, red);
+    const bool exc = stall >= kExcStall;
+
+    if (hi > 0) {
+      // ---- shifts (warp 0) ----
+      if (tid < 32)
+        trailing_shifts_warp(H, n, lo, hi, m, exc, blockB, s_dist, s_shift);
+      if (tid < m) {
+        s_x[tid] = c_make(0.f, 0.f);
+        s_y[tid] = c_make(0.f, 0.f);
+      }
+      __syncthreads();
+
+      // ---- chase: nb live bulges, steps lo .. hi - 1 + 2 (nb - 1) ----
+      const int nb = min(m, (hi - lo - 1) / 2 + 1);
+      const int t_final = hi - 1 + 2 * (nb - 1);
+      for (int t = lo; t <= t_final; ++t) {
+        if (tid < m) {
+          const int i = tid, k = t - 2 * i;
+          const bool act = i < nb && k >= lo && k < hi;
+          s_act[i] = act;
+          if (act) {
+            if (k == lo) {
+              s_x[i] = c_sub(H[(size_t)lo * n + lo], s_shift[i]);
+              s_y[i] = H[(size_t)(lo + 1) * n + lo];
+            }
+            const Givens g = givens(s_x[i], s_y[i]);
+            s_c[i] = g.c;
+            s_s[i] = g.s;
+            atomicAdd(&s_rot, 1ull);
+          }
+        }
+        __syncthreads();
+        // rows k, k+1 of H (columns >= max(k-1, lo)) and of Z^T (all)
+        const int nlive = min(nb, (t - lo) / 2 + 1);  // bulges entered so far
+        for (int idx = tid; idx < nlive * 2 * n; idx += kThreads) {
+          const int i = idx / (2 * n), jj = idx - i * 2 * n;
+          if (!s_act[i]) continue;
+          const int k = t - 2 * i;
+          const float c = s_c[i];
+          const float2 sg = s_s[i];
+          if (jj < n) {
+            if (jj < max(k - 1, lo)) continue;
+            float2* pk = H + (size_t)k * n + jj;
+            const float2 hk = pk[0], h1 = pk[n];
+            pk[0] = c_add(c_scale(c, hk), c_mul(sg, h1));
+            pk[n] = (jj == k - 1 && k > lo)
+                        ? c_make(0.f, 0.f)
+                        : c_sub(c_scale(c, h1), c_cmul(sg, hk));
+          } else {
+            float2* pk = Zt + (size_t)k * n + (jj - n);
+            const float2 l = pk[0], r = pk[n];
+            pk[0] = c_add(c_scale(c, l), c_cmul(sg, r));
+            pk[n] = c_sub(c_scale(c, r), c_mul(sg, l));
+          }
+        }
+        __syncthreads();
+        // columns k, k+1 of H, rows <= min(k + 2, hi)
+        const int nrow = min(t + 3, hi + 1);  // the leading bulge reaches
+        for (int idx = tid; idx < nlive * nrow; idx += kThreads) {
+          const int i = idx / nrow, r = idx - i * nrow;
+          if (!s_act[i]) continue;
+          const int k = t - 2 * i;
+          if (r > min(k + 2, hi)) continue;
+          const float c = s_c[i];
+          const float2 sg = s_s[i];
+          float2* p = H + (size_t)r * n + k;
+          const float2 l = p[0], rr = p[1];
+          const float2 nl = c_add(c_scale(c, l), c_cmul(sg, rr));
+          p[0] = nl;
+          p[1] = c_sub(c_scale(c, rr), c_mul(sg, l));
+          if (r == k + 1) {
+            s_x[i] = nl;
+            if (k + 2 > hi) s_y[i] = c_make(0.f, 0.f);
+          }
+          if (r == k + 2) s_y[i] = nl;
+        }
+        __syncthreads();
+      }
+    }
+    stall = (hi < hi_prev || exc) ? 0 : stall + 1;
+    ++it;
+  }
+
+  for (int e = tid; e < n * n; e += kThreads)
+    if (e / n > e % n) H[e] = c_make(0.f, 0.f);
+  __syncthreads();
+  if (tid == 0) {
+    stats[0] = hi;
+    stats[1] = it;
+    stats[2] = (long long)s_rot;
+  }
+}
+
+}  // namespace
+
+// H (in place: T on return) and Zt (Q^T in, Z^T out) are n x n complex64,
+// row-major; stats takes three 64-bit integers.
+extern "C" int torcwa_schur_qr_ms_c64(void* H, void* Zt, void* stats, int n,
+                                      int m, int max_sweeps, void* stream) {
+  if (n < 1 || m < 1 || m > kShiftMaxM) return (int)cudaErrorInvalidValue;
+  const size_t smem = shift_block_elems(m) * sizeof(float2);
+  cudaError_t err = set_smem(schur_qr_ms_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  schur_qr_ms_kernel<<<1, kThreads, smem, (cudaStream_t)stream>>>(
+      (float2*)H, (float2*)Zt, (long long*)stats, n, m, max_sweeps);
+  return (int)cudaGetLastError();
+}

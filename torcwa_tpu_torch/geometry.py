@@ -4,7 +4,8 @@ Counterpart of ``torcwa_tpu/geometry.py``: each primitive builds a signed
 level-set function on a cell-centred grid and squashes it through
 ``sigmoid(edge_sharpness * level)``; boolean ops act pointwise on the
 occupancy rasters (union = max, intersection = min, difference =
-min(A, 1 - B)).  Rasters are made on ``device``.
+min(A, 1 - B)).  Rasters are made on ``device``: the CUDA card unless the
+caller passes ``device='cpu'``.
 """
 
 import torch
@@ -43,7 +44,7 @@ class geometry:
     """Instance-configured rasterizer."""
 
     def __init__(self, Lx=1., Ly=1., nx=100, ny=100, edge_sharpness=1000.,
-                 *, dtype=torch.float32, device='cpu'):
+                 *, dtype=torch.float32, device='cuda'):
         self.Lx = Lx
         self.Ly = Ly
         self.nx = nx
@@ -115,7 +116,7 @@ class rcwa_geo:
     nx = 100
     ny = 100
     dtype = torch.float32
-    device = 'cpu'
+    device = 'cuda'
 
     @classmethod
     def _geo(cls):

@@ -34,10 +34,13 @@ _F = ctypes.c_float
 _SIGNATURES = {
     'torcwa_hessenberg_c64': [_P, _P, _P, _I, _I, _P],
     'torcwa_schur_qr_c64': [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    'torcwa_schur_qr_v2_c64': [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    'torcwa_schur_qr_ms_c64': [_P, _P, _P, _I, _I, _I, _P],
     'torcwa_tri_vectors_c64': [_P, _P, _I, _I, _P],
     'torcwa_tri_vectors_block_c64': [_P, _P, _P, _P, _I, _I, _I, _P],
     'torcwa_ms_band_scan_c64': [_P, _I, _I, _F, _P, _P],
     'torcwa_ms_aed_c64': [_P, _I, _P, _I, _I, _I, _F, _P, _P, _P],
+    'torcwa_ms_trailing_shifts_c64': [_P, _I, _P, _I, _I, _P, _P],
     'torcwa_ms_chase_c64': [_P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P,
                             _P],
     'torcwa_ms_apply_left_c64': [_P, _I, _I, _I, _I, _I, _P, _I, _P],

@@ -1,12 +1,15 @@
-"""The three batched eig kernels of the small-n route, their plain versions,
-and the launch counts of every kernel of the port.
+"""The batched eig kernels of the small-n route, their plain versions, and
+the launch counts of every kernel of the port.
 
-Counterpart of the batched small-n route of ``torcwa_tpu/ops/
-eig_qr_pallas.py`` (the large-n route is in ``hess_blocked.py``,
-``schur_ms.py`` and ``vec_blocked.py``).  Each stage has
+Counterpart of the batched kernels of ``torcwa_tpu/ops/eig_qr_pallas.py``
+(the large-n route is in ``hess_blocked.py``, ``schur_ms.py`` and
+``vec_blocked.py``, the one-launch multishift QR in ``schur_qr_ms.py``).
+:func:`schur_qr_v2` is the stand-alone "v2" single-shift QR
+(``schur_qr_pallas[_batched]``): the function of :func:`schur_qr` under
+other rules, on no route of ``eig_qr``.  Each stage has
 
-* a wrapper (:func:`hessenberg`, :func:`schur_qr`, :func:`tri_vectors`)
-  that launches the CUDA kernel in ``csrc/`` for a CUDA tensor and raises
+* a wrapper (:func:`hessenberg`, :func:`schur_qr`, :func:`schur_qr_v2`,
+  :func:`tri_vectors`) that launches the CUDA kernel in ``csrc/`` for a CUDA tensor and raises
   for anything the kernel does not take, and uses the plain version only
   for a tensor that lies on the CPU;
 * a plain PyTorch version (``*_plain``) with the same rules, batched over
@@ -22,9 +25,9 @@ import torch
 
 from . import _build
 
-__all__ = ['hessenberg', 'schur_qr', 'tri_vectors', 'hessenberg_plain',
-           'schur_qr_plain', 'tri_vectors_plain', 'LAUNCHES',
-           'reset_launch_counts']
+__all__ = ['hessenberg', 'schur_qr', 'schur_qr_v2', 'tri_vectors',
+           'hessenberg_plain', 'schur_qr_plain', 'schur_qr_v2_plain',
+           'tri_vectors_plain', 'LAUNCHES', 'reset_launch_counts']
 
 # TPU-kernel defaults (eig_qr_pallas.py: _CPLX_STALL, _NRUNS, _DEFL_MULT);
 # csrc/schur_qr.cu compiles in the same values
@@ -33,12 +36,18 @@ NRUNS = 4
 DEFL_MULT = 4.0
 EXC_EVERY = 13
 MAX_ITER_FACTOR = 40
+# the v2 kernel's rules (eig_qr_pallas._kernel): one window per lane,
+# deflation multiplier 1, the complex Wilkinson branch always open
+V2_RULES = dict(nruns=1, defl_mult=1., cplx_stall=0)
 
 # 'schur_ms' counts every launch of a function of csrc/schur_ms.cu (band
-# scan, AED, chase, slab products), 'tri_vectors_blocked' one per row block;
-# their wrappers live in ops/schur_ms.py and ops/vec_blocked.py
+# scan, AED or trailing-block shifts, chase, slab products),
+# 'tri_vectors_blocked' one per row block, 'schur_qr_ms' one per matrix;
+# their wrappers live in ops/schur_ms.py, ops/vec_blocked.py and
+# ops/schur_qr_ms.py
 LAUNCHES = {'hessenberg': 0, 'schur_qr': 0, 'tri_vectors': 0,
-            'schur_ms': 0, 'tri_vectors_blocked': 0}
+            'schur_ms': 0, 'tri_vectors_blocked': 0, 'schur_qr_v2': 0,
+            'schur_qr_ms': 0}
 
 
 def reset_launch_counts():
@@ -182,20 +191,21 @@ def _wilkinson(a, b, c, d, stalled):
                          torch.where(pick1, l1i, l2i))
 
 
-def schur_qr_plain(H, Z, max_iter_factor=MAX_ITER_FACTOR):
-    """Implicit single-shift complex Schur QR (eig_qr_pallas._kernel_acc
-    rules, rotations applied directly).  Returns (T, Z, hi, sweeps) with
-    per-lane final window bottom ``hi`` (0 == converged) and sweep count;
-    T is not NaN-poisoned here."""
+def _single_shift_sweeps(H, Z, max_iters, nruns, defl_mult, cplx_stall):
+    """At most ``max_iters`` implicit single-shift QR sweeps, rotations
+    applied directly: up to ``nruns`` windows a sweep, deflation at
+    ``defl_mult`` eps (|d| + |d'|), the complex Wilkinson branch of an
+    exactly real discriminant open after ``cplx_stall`` sweeps without
+    progress.  Returns (T, Z, hi, sweeps, rotations) per lane."""
     H = H.clone()
     Z = Z.clone()
     B, n = H.shape[0], H.shape[-1]
     dev = H.device
     eps, smlnum = _consts(H.dtype)
-    max_iters = max_iter_factor * n
     hi = torch.full((B,), n - 1, dtype=torch.long, device=dev)
     stall = torch.zeros(B, dtype=torch.long, device=dev)
     sweeps = torch.zeros(B, dtype=torch.long, device=dev)
+    rot = torch.zeros(B, dtype=torch.long, device=dev)
     ar = torch.arange(n, device=dev)
     lane = torch.arange(1, n, device=dev)
     bidx = torch.arange(B, device=dev)
@@ -207,7 +217,7 @@ def schur_qr_plain(H, Z, max_iter_factor=MAX_ITER_FACTOR):
         sub = torch.diagonal(H, -1, dim1=-2, dim2=-1)          # H[c+1, c]
         sup = torch.diagonal(H, 1, dim1=-2, dim2=-1)           # H[c, c+1]
         d = dg.abs()
-        thresh = torch.clamp(DEFL_MULT * eps * (d[:, :-1] + d[:, 1:]),
+        thresh = torch.clamp(defl_mult * eps * (d[:, :-1] + d[:, 1:]),
                              min=smlnum)
         alive = (sub.real ** 2 + sub.imag ** 2) > thresh * thresh
         hi_new = torch.where((lane <= hi[:, None]) & alive, lane,
@@ -220,13 +230,13 @@ def schur_qr_plain(H, Z, max_iter_factor=MAX_ITER_FACTOR):
         def lo_of(h):
             return torch.where((ar <= h[:, None]) & top_ok, ar, 0).amax(-1)
 
-        stalled = stall >= CPLX_STALL
+        stalled = stall >= cplx_stall
         act = torch.zeros(B, n, dtype=torch.bool, device=dev)
         intro = torch.zeros(B, n, dtype=torch.bool, device=dev)
         x0 = torch.zeros(B, n, dtype=H.dtype, device=dev)
         y0 = torch.zeros(B, n, dtype=H.dtype, device=dev)
         h_r, l_r = hi, lo_of(hi)
-        for r in range(NRUNS):
+        for r in range(nruns):
             if r > 0:
                 h_r = torch.where((lane <= (l_r - 1)[:, None]) & alive, lane,
                                   0).amax(-1)
@@ -247,6 +257,7 @@ def schur_qr_plain(H, Z, max_iter_factor=MAX_ITER_FACTOR):
             lo_c = l_r.clamp(max=n - 2)
             x0 = torch.where(at_lo, (H[bidx, lo_c, lo_c] - sh)[:, None], x0)
             y0 = torch.where(at_lo, H[bidx, lo_c + 1, lo_c][:, None], y0)
+        rot += act.sum(-1)
         if bool(act.any()):
             ks = act.any(0).nonzero()
             k0, k1 = int(ks[0]), int(ks[-1]) + 1
@@ -276,7 +287,16 @@ def schur_qr_plain(H, Z, max_iter_factor=MAX_ITER_FACTOR):
             H = H.masked_fill(two_below, 0)
         it += 1
     lower = ar[:, None] > ar[None, :]
-    return H.masked_fill(lower, 0), Z, hi, sweeps
+    return H.masked_fill(lower, 0), Z, hi, sweeps, rot
+
+
+def schur_qr_plain(H, Z, max_iter_factor=MAX_ITER_FACTOR):
+    """Implicit single-shift complex Schur QR by the rules of
+    eig_qr_pallas._kernel_acc (four windows a sweep, multiplier 4, stall
+    gate 30).  Returns (T, Z, hi, sweeps) with per-lane final window bottom
+    ``hi`` (0 == converged) and sweep count; T is not NaN-poisoned here."""
+    return _single_shift_sweeps(H, Z, max_iter_factor * H.shape[-1], NRUNS,
+                                DEFL_MULT, CPLX_STALL)[:4]
 
 
 def _poison(T, hi):
@@ -297,7 +317,7 @@ def schur_qr(H, Q, max_iter_factor=MAX_ITER_FACTOR, return_stats=False):
         B, n = H.shape[0], H.shape[-1]
         T = torch.empty_like(H)
         Z = torch.empty_like(H)
-        stats = torch.empty(B, 2, dtype=torch.int32, device=H.device)
+        stats = torch.empty(B, 3, dtype=torch.int32, device=H.device)
         err = _build.load().torcwa_schur_qr_c64(
             H.data_ptr(), Q.data_ptr(), T.data_ptr(), Z.data_ptr(),
             stats.data_ptr(), B, n, max_iter_factor * n, _stream())
@@ -309,6 +329,47 @@ def schur_qr(H, Q, max_iter_factor=MAX_ITER_FACTOR, return_stats=False):
     T = _poison(T, hi)
     if return_stats:
         return T, Z, (hi, sweeps)
+    return T, Z
+
+
+def schur_qr_v2_plain(H, Z, max_iter_factor=MAX_ITER_FACTOR, max_iters=None):
+    """The plain version of :func:`schur_qr_v2`: (T, Z, hi, sweeps,
+    rotations), T as the sweeps left it."""
+    if max_iters is None:
+        max_iters = max_iter_factor * H.shape[-1]
+    return _single_shift_sweeps(H, Z, max_iters, **V2_RULES)
+
+
+def schur_qr_v2(H, Q, max_iter_factor=MAX_ITER_FACTOR, return_stats=False,
+                max_iters=None):
+    """Batched single-shift Schur QR by the v2 rules (one window per lane,
+    deflation at eps (|d| + |d'|), complex Wilkinson branch always open):
+    Hessenberg H and its Q -> (T, Z) with H = Z T Z^H.
+
+    Counterpart of ``schur_qr_pallas_batched``: a lane that runs out of the
+    ``max_iter_factor * n`` sweep budget (``max_iters`` sweeps when given)
+    is handed back as it stands, NOT NaN-poisoned.  With ``return_stats``
+    also returns (window bottom, sweeps, rotations applied) per lane.  A CUDA tensor goes through the kernel's second entry
+    point in ``csrc/schur_qr.cu`` (complex64 only), a CPU tensor through
+    the plain version."""
+    if _check('schur_qr_v2', H, Q):
+        B, n = H.shape[0], H.shape[-1]
+        if max_iters is None:
+            max_iters = max_iter_factor * n
+        T = torch.empty_like(H)
+        Z = torch.empty_like(H)
+        stats = torch.empty(B, 3, dtype=torch.int32, device=H.device)
+        err = _build.load().torcwa_schur_qr_v2_c64(
+            H.data_ptr(), Q.data_ptr(), T.data_ptr(), Z.data_ptr(),
+            stats.data_ptr(), B, n, max_iters, _stream())
+        _raise_on('schur_qr_v2', err)
+        LAUNCHES['schur_qr_v2'] += 1
+        hi, sweeps, rot = stats[:, 0], stats[:, 1], stats[:, 2]
+    else:
+        T, Z, hi, sweeps, rot = schur_qr_v2_plain(H, Q, max_iter_factor,
+                                                  max_iters)
+    if return_stats:
+        return T, Z, (hi, sweeps, rot)
     return T, Z
 
 

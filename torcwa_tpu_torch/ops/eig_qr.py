@@ -13,6 +13,12 @@ Counterpart of the routing in ``torcwa_tpu/ops/eig_qr_real.py``
   ``schur_ms`` (windowed multishift QR with aggressive early deflation,
   m = 24 shifts below n = 4200, else 32) -> ``tri_vectors_blocked``.
 
+The small route is :func:`eig_small` with the Schur stage passed in:
+``eig_qr`` passes ``SMALL_SCHUR`` (``schur_qr``), and the stand-alone stages
+``schur_qr_v2`` and ``schur_qr_ms`` (through :func:`lane_by_lane`) run the
+same composition, Hessenberg -> that stage -> triangular vectors -> V = Z Y
+-> unit columns -> refinement, without being on a route.
+
 The small route's kernels keep H, Z and Y in device memory and have no
 size ceiling, but run one block per matrix and a single-shift QR whose
 work grows as n^3 sweeps of O(n) latency-bound rotations; the threshold is
@@ -28,10 +34,13 @@ from .hess_blocked import hessenberg_blocked
 from .schur_ms import schur_ms
 from .vec_blocked import tri_vectors_blocked
 
-__all__ = ['eig_qr', 'LARGE_MIN_N']
+__all__ = ['eig_qr', 'eig_small', 'lane_by_lane', 'LARGE_MIN_N']
 
 # matrices of this order and above take the large-n route
 LARGE_MIN_N = 512
+# the Schur stage of the small route, (H, Q) -> (T, Z) on (B, n, n); read at
+# call time, so a check can drive the route through another stage
+SMALL_SCHUR = schur_qr
 # deflation-threshold multiplier of the multishift QR (eig_qr_real._HBM_DEFL)
 LARGE_DEFL_MULT = 4.0
 # refinement of a complex64 result: (steps, gap).  Pairs with |E_ij| >= gap
@@ -89,6 +98,36 @@ def _eig_large(A):
     return torch.diagonal(T), Z @ tri_vectors_blocked(T)
 
 
+def _finish(A3, w, V):
+    """Unit-norm columns and, for complex64, the refinement steps."""
+    nrm = torch.linalg.vector_norm(V, dim=-2, keepdim=True)
+    V = V / torch.where(nrm > 0, nrm, torch.ones_like(nrm))
+    if A3.dtype == torch.complex64:
+        for _ in range(REFINE[0]):
+            w, V = _refine(A3, w, V, REFINE[1])
+    return w, V
+
+
+def lane_by_lane(stage, **kw):
+    """A batched Schur stage (H, Q) -> (T, Z) on (B, n, n) from one that
+    takes a single matrix, e.g. ``lane_by_lane(schur_qr_ms, m=16)``."""
+    def batched(H, Q):
+        lanes = [stage(h, q, **kw) for h, q in zip(H, Q)]
+        return (torch.stack([l[0] for l in lanes]),
+                torch.stack([l[1] for l in lanes]))
+    return batched
+
+
+def eig_small(A3, schur=None):
+    """(B, n, n) through the batched composition: ``hessenberg`` -> the
+    Schur stage ``schur(H, Q) -> (T, Z)`` (default ``SMALL_SCHUR``) ->
+    ``tri_vectors`` -> V = Z Y -> unit columns -> refinement."""
+    H, Q = hessenberg(A3)
+    T, Z = (SMALL_SCHUR if schur is None else schur)(H, Q)
+    w = torch.diagonal(T, dim1=-2, dim2=-1)
+    return _finish(A3, w, Z @ tri_vectors(T))
+
+
 def eig_qr(A):
     """(..., n, n) complex -> (w (..., n), V (..., n, n)).
 
@@ -100,16 +139,8 @@ def eig_qr(A):
     A3 = A.reshape(-1, n, n).contiguous()
     if n >= LARGE_MIN_N:
         lanes = [_eig_large(a) for a in A3]
-        w = torch.stack([l[0] for l in lanes])
-        V = torch.stack([l[1] for l in lanes])
+        w, V = _finish(A3, torch.stack([l[0] for l in lanes]),
+                       torch.stack([l[1] for l in lanes]))
     else:
-        H, Q = hessenberg(A3)
-        T, Z = schur_qr(H, Q)
-        w = torch.diagonal(T, dim1=-2, dim2=-1)
-        V = Z @ tri_vectors(T)
-    nrm = torch.linalg.vector_norm(V, dim=-2, keepdim=True)
-    V = V / torch.where(nrm > 0, nrm, torch.ones_like(nrm))
-    if A3.dtype == torch.complex64:
-        for _ in range(REFINE[0]):
-            w, V = _refine(A3, w, V, REFINE[1])
+        w, V = eig_small(A3)
     return w.reshape(batch + (n,)), V.reshape(batch + (n, n))

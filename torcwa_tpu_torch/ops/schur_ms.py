@@ -8,6 +8,10 @@ sweep loop runs here on the host, once for both versions:
 * AED on the trailing window of at most ``kw`` rows deflates what it can
   and yields the sweep's ``m`` shifts; its transform is applied to the
   off-diagonal slabs of H and to Z only when it deflated something;
+  with ``aed=False`` the shifts are the eigenvalues of the trailing m x m
+  block instead (:func:`trailing_shifts_plain`, ``ms_trailing_shifts`` on
+  the card; ``schur_qr_ms.py`` takes its shifts by the same function),
+  nothing deflates beyond the band scan and no chase is skipped;
 * the nibble rule skips the chase when AED alone deflated more than
   ``nibble`` percent of its window and the sweep is not exceptional;
 * otherwise ``m`` spacing-2 bulges are chased through overlapping windows
@@ -30,7 +34,8 @@ from .eig_kernels import (LAUNCHES, _consts, _givens, _raise_on, _stream,
                           _wilkinson)
 
 __all__ = ['schur_ms', 'schur_ms_plain', 'run_sweeps', 'window',
-           'ms_apply_left', 'ms_apply_right', 'AED_KW', 'NIBBLE', 'EXC_STALL']
+           'ms_apply_left', 'ms_apply_right', 'trailing_shifts_plain',
+           'band_scan_plain', 'chase_plain', 'AED_KW', 'NIBBLE', 'EXC_STALL']
 
 AED_KW = 64          # AED window (eig_qr_hbm._AED_KW)
 NIBBLE = 14          # percent of the window (eig_qr_hbm._NIBBLE)
@@ -79,10 +84,11 @@ def _givens_scalar(x, y):
     return [[c, s], [-s.conjugate(), c]]
 
 
-def _mini_schur(W, budget):
+def _mini_schur(W, budget, vectors=True):
     """Single-shift Schur form of a small Hessenberg W with accumulated
-    Qm, T = Qm W Qm^H (eig_qr_hbm._mini_schur).  Returns (T, Qm, hi_m,
-    iterations); lanes >= hi_m of T are converged eigenvalues."""
+    Qm, T = Qm W Qm^H (eig_qr_hbm._mini_schur; without ``vectors``
+    eig_qr_pallas_ms._mini_eigvals, Qm staying the identity).  Returns (T,
+    Qm, hi_m, iterations); lanes >= hi_m of T are converged eigenvalues."""
     W = W.clone()
     kw = W.shape[-1]
     eps, smlnum = _consts(W.dtype)
@@ -112,12 +118,114 @@ def _mini_schur(W, budget):
             W[k:k + 2, j0:] = G @ W[k:k + 2, j0:]
             if k > lo:
                 W[k + 1, k - 1] = 0
-            Qm[k:k + 2] = G @ Qm[k:k + 2]
+            if vectors:
+                Qm[k:k + 2] = G @ Qm[k:k + 2]
             W[:i1, k:k + 2] = W[:i1, k:k + 2] @ G.mH
             x = complex(W[k + 1, k])
             y = complex(W[k + 2, k]) if k + 2 <= hi else 0j
         it += 1
     return W, Qm, hi, it
+
+
+def band_scan_plain(H, hi_top, mult):
+    """The active block (lo, hi) at or above row ``hi_top``: the bottom-most
+    run of subdiagonals with |h| > max(mult eps (|d| + |d'|), smlnum);
+    (0, 0) when none is left."""
+    eps, smlnum = _consts(H.dtype)
+    dg = torch.diagonal(H).abs()
+    sub = torch.diagonal(H, -1)
+    th = torch.clamp(mult * eps * (dg[:-1] + dg[1:]), min=smlnum)
+    alive = ((sub.real ** 2 + sub.imag ** 2) > th * th).tolist()
+    hi = hi_top
+    while hi > 0 and not alive[hi - 1]:
+        hi -= 1
+    if hi <= 0:
+        return 0, 0
+    lo = hi
+    while lo > 0 and alive[lo - 1]:
+        lo -= 1
+    return lo, hi
+
+
+def chase_plain(H, shifts, xs, ys, a, wbe, tcur, t_end, lo, hi, U=None,
+                Z=None):
+    """Steps tcur..t_end of the chase of m = len(shifts) spacing-2 bulges on
+    the active block [lo, hi], inside the diagonal window of ``wbe`` rows at
+    ``a`` (the whole matrix: a = 0, wbe = n), in place on H.  Bulge i sits at
+    row k = t - 2 i at step t and enters at k = lo with (H[lo,lo] -
+    shifts[i], H[lo+1,lo]); (xs, ys) carry each bulge's next rotation source
+    and are returned.  The left factors go to the rows of ``U`` (window
+    coordinates) when given, the right factors to the columns of ``Z``
+    when given.  All row rotations of a step, then all column rotations;
+    a row rotation covers columns >= max(k - 1, lo) only."""
+    m = shifts.shape[0]
+    dev = H.device
+    Hw = H[:, a:a + wbe]                 # the window's columns, all rows
+    ii = torch.arange(m, device=dev)
+    valid = lo + 2 * ii + 1 <= hi
+    idx = torch.arange(a, a + wbe, device=dev)[None, :]
+    for t in range(tcur, t_end + 1):
+        ks = t - 2 * ii
+        act = valid & (ks >= lo) & (ks < hi)
+        if not bool(act.any()):
+            continue
+        intro = act & (ks == lo)
+        xs = torch.where(intro, H[lo, lo] - shifts, xs)
+        ys = torch.where(intro, H[lo + 1, lo], ys)
+        k = ks[act]
+        c, s = _givens(xs[act], ys[act])
+        c, s = c[:, None], s[:, None]
+        # rows k, k+1: columns >= max(k-1, lo) of the window, and U
+        hk, h1 = Hw[k], Hw[k + 1]
+        on = idx >= torch.clamp(k - 1, min=lo)[:, None]
+        zap = (idx == (k - 1)[:, None]) & (k > lo)[:, None]
+        Hw[k] = torch.where(on, c * hk + s * h1, hk)
+        n1 = torch.where(on, c * h1 - s.conj() * hk, h1)
+        Hw[k + 1] = torch.where(zap, torch.zeros_like(n1), n1)
+        if U is not None:
+            uk, u1 = U[k - a], U[k + 1 - a]
+            U[k - a] = c * uk + s * u1
+            U[k + 1 - a] = c * u1 - s.conj() * uk
+        # columns k, k+1: the window's rows up to min(k+2, hi)
+        cl, cr = H[a:a + wbe, k].T, H[a:a + wbe, k + 1].T
+        on = idx <= torch.clamp(k + 2, max=hi)[:, None]
+        H[a:a + wbe, k] = torch.where(on, c * cl + s.conj() * cr, cl).T
+        H[a:a + wbe, k + 1] = torch.where(on, c * cr - s * cl, cr).T
+        if Z is not None:
+            zl, zr = Z[:, k].T, Z[:, k + 1].T
+            Z[:, k] = (c * zl + s.conj() * zr).T
+            Z[:, k + 1] = (c * zr - s * zl).T
+        xs[act] = H[k + 1, k]          # xs, ys are this step's own copies
+        k2 = torch.clamp(k + 2, max=hi)
+        ys[act] = torch.where(k + 2 <= hi, H[k2, k],
+                              torch.zeros_like(xs[act]))
+    return xs, ys
+
+
+def trailing_shifts_plain(H, lo, hi, m, exc=False):
+    """The m shifts of a sweep on the active block [lo, hi] of H
+    (eig_qr_pallas_ms._kernel_ms's shift choice, csrc/ms_shifts.cuh on the
+    card): the eigenvalues of the trailing block from base = max(hi - (m -
+    1), lo) to hi by a single-shift QR of at most 6 m iterations, ordered by
+    distance to H[hi, hi] (ties in index order), the m - (hi - base + 1)
+    padding lanes, value 0, last.  On an exceptional sweep shift i is the
+    diagonal entry at pos = min(base + i, hi) with 0.75 |H[pos + 1, pos]|
+    added to its real part (nothing at pos = hi).  The block is worked on
+    the CPU in H's precision; the shifts come back on H's device."""
+    base = max(hi - (m - 1), lo)
+    L = hi - base + 1
+    blk = H[base:hi + 1, base:hi + 1].cpu()
+    if exc:
+        pos = torch.clamp(torch.arange(m), max=L - 1)
+        d = torch.diagonal(blk)[pos]
+        sub = torch.cat([torch.diagonal(blk, -1).abs(),
+                         torch.zeros(1, dtype=d.real.dtype)])[pos]
+        return torch.complex(d.real + 0.75 * sub, d.imag).to(H.device)
+    ev = torch.diagonal(_mini_schur(blk, 6 * m, vectors=False)[0])
+    dist = (ev - blk[-1, -1]).abs() ** 2
+    order = torch.sort(dist, stable=True).indices
+    sh = torch.cat([ev[order], torch.zeros(m - L, dtype=H.dtype)])
+    return sh.to(H.device)
 
 
 class _PlainOps:
@@ -138,18 +246,9 @@ class _PlainOps:
     def scan_and_aed(self, hi_top, exc):
         H, m, kw = self.H, self.m, self.kw
         eps, smlnum, mult = self.eps, self.smlnum, self.defl_mult
-        dg = torch.diagonal(H).abs()
-        sub = torch.diagonal(H, -1)
-        th = torch.clamp(mult * eps * (dg[:-1] + dg[1:]), min=smlnum)
-        alive = ((sub.real ** 2 + sub.imag ** 2) > th * th).tolist()
-        hi = hi_top
-        while hi > 0 and not alive[hi - 1]:
-            hi -= 1
+        lo, hi = band_scan_plain(H, hi_top, mult)
         if hi <= 0:
             return 0, 0, 0, 0, 0
-        lo = hi
-        while lo > 0 and alive[lo - 1]:
-            lo -= 1
         s = max(hi - kw + 1, lo + 1)
         kwe = hi - s + 1
         W = H[s:s + kwe, s:s + kwe].cpu()
@@ -223,47 +322,17 @@ class _PlainOps:
         self.xs = torch.zeros(self.m, dtype=self.H.dtype, device=self.H.device)
         self.ys = torch.zeros_like(self.xs)
 
+    def scan_and_shifts(self, hi_top, exc):
+        lo, hi = band_scan_plain(self.H, hi_top, self.defl_mult)
+        if hi > 0:
+            self.shifts = trailing_shifts_plain(self.H, lo, hi, self.m, exc)
+        return lo, hi, 0, 0, hi
+
     def chase(self, a, wbe, tcur, t_end, lo, hi):
-        H, m = self.H, self.m
-        dev = H.device
-        U = torch.eye(wbe, dtype=H.dtype, device=dev)
-        Hw = H[:, a:a + wbe]                 # the window's columns, all rows
-        ii = torch.arange(m, device=dev)
-        valid = lo + 2 * ii + 1 <= hi
-        idx = torch.arange(a, a + wbe, device=dev)[None, :]
-        xs, ys = self.xs, self.ys
-        for t in range(tcur, t_end + 1):
-            ks = t - 2 * ii
-            act = valid & (ks >= lo) & (ks < hi)
-            if not bool(act.any()):
-                continue
-            intro = act & (ks == lo)
-            xs = torch.where(intro, H[lo, lo] - self.shifts, xs)
-            ys = torch.where(intro, H[lo + 1, lo], ys)
-            k = ks[act]
-            c, s = _givens(xs[act], ys[act])
-            c, s = c[:, None], s[:, None]
-            # rows k, k+1: columns >= max(k-1, lo) of the window, and U
-            hk, h1 = Hw[k], Hw[k + 1]
-            on = idx >= torch.clamp(k - 1, min=lo)[:, None]
-            zap = (idx == (k - 1)[:, None]) & (k > lo)[:, None]
-            Hw[k] = torch.where(on, c * hk + s * h1, hk)
-            n1 = torch.where(on, c * h1 - s.conj() * hk, h1)
-            Hw[k + 1] = torch.where(zap, torch.zeros_like(n1), n1)
-            uk, u1 = U[k - a], U[k + 1 - a]
-            U[k - a] = c * uk + s * u1
-            U[k + 1 - a] = c * u1 - s.conj() * uk
-            # columns k, k+1: the window's rows up to min(k+2, hi)
-            cl, cr = H[a:a + wbe, k].T, H[a:a + wbe, k + 1].T
-            on = idx <= torch.clamp(k + 2, max=hi)[:, None]
-            H[a:a + wbe, k] = torch.where(on, c * cl + s.conj() * cr, cl).T
-            H[a:a + wbe, k + 1] = torch.where(on, c * cr - s * cl, cr).T
-            xs[act] = H[k + 1, k]          # xs, ys are this step's own copies
-            k2 = torch.clamp(k + 2, max=hi)
-            ys[act] = torch.where(k + 2 <= hi, H[k2, k],
-                                  torch.zeros_like(xs[act]))
-        self.xs, self.ys = xs, ys
-        self.U = U
+        H = self.H
+        self.U = torch.eye(wbe, dtype=H.dtype, device=H.device)
+        self.xs, self.ys = chase_plain(H, self.shifts, self.xs, self.ys, a,
+                                       wbe, tcur, t_end, lo, hi, U=self.U)
 
     def apply_window(self, a, wbe):
         H, Z, U, e = self.H, self.Z, self.U, a + wbe
@@ -355,6 +424,16 @@ class _CudaOps:
         lo, hi, s, kwe, hi_new = self.info[:5].tolist()
         return lo, hi, s, kwe, hi_new
 
+    def scan_and_shifts(self, hi_top, exc):
+        H, n = self.H, self.n
+        _launch('torcwa_ms_band_scan_c64', H.data_ptr(), n, hi_top,
+                self.defl_mult, self.info.data_ptr())
+        _launch('torcwa_ms_trailing_shifts_c64', H.data_ptr(), n,
+                self.info.data_ptr(), int(exc), self.m,
+                self.shifts.data_ptr())
+        lo, hi, s, kwe, hi_new = self.info[:5].tolist()
+        return lo, hi, s, kwe, hi_new
+
     def apply_aed(self, s, kwe):
         P, e, n = self.Lp[:kwe * kwe].view(kwe, kwe), s + kwe, self.n
         ms_apply_left(self.H, s, e, n, P)
@@ -385,7 +464,7 @@ class _CudaOps:
 _CFMA, _PAIR = 8, 20
 
 
-def _sweeps(ops, n, m, kw, wb, budget, nibble):
+def _sweeps(ops, n, m, kw, wb, budget, nibble, aed=True):
     """Run sweeps until the active block closes or the budget runs out.
     Returns (hi, sweeps, aed_deflated, skipped_chases, flops_done,
     flops_needed).  flops_done counts this implementation's work: the slab
@@ -396,12 +475,15 @@ def _sweeps(ops, n, m, kw, wb, budget, nibble):
     every chase rotation applied directly to its 2n element pairs (a row
     pair and a column pair of H, a column pair of Z), and every applied AED
     transform as one dense kwe x kwe product with its 2n - kwe slab
-    columns and rows."""
+    columns and rows.  Without ``aed`` the shifts come from the trailing
+    m x m block, nothing deflates beyond the band scan and every sweep
+    chases."""
+    scan = ops.scan_and_aed if aed else ops.scan_and_shifts
     stride = wb - _overlap(m)
     hi_top, it, stall, aed_tot, skip_tot, flops, need = n - 1, 0, 0, 0, 0, 0, 0
     while hi_top > 0 and it < budget:
         exc = stall >= EXC_STALL
-        lo, hi_band, s, kwe, hi = ops.scan_and_aed(hi_top, exc)
+        lo, hi_band, s, kwe, hi = scan(hi_top, exc)
         it += 1
         if hi_band <= 0:
             hi_top = 0
@@ -437,10 +519,6 @@ def _sweeps(ops, n, m, kw, wb, budget, nibble):
 
 
 def _check_args(H, Q, m, kw, wb, aed):
-    if not aed:
-        raise NotImplementedError(
-            'schur_ms(aed=False), shifts from the trailing m x m block, is '
-            'still to be ported (ROADMAP.md, "Still to be ported")')
     if H.dim() != 2 or H.shape[0] != H.shape[1] or H.shape != Q.shape \
             or not H.is_complex() or H.dtype != Q.dtype \
             or H.device != Q.device:
@@ -449,13 +527,13 @@ def _check_args(H, Q, m, kw, wb, aed):
     if wb <= _overlap(m):
         raise ValueError(f'window {wb} too small for {m} bulges '
                          f'(stride {wb - _overlap(m)} <= 0)')
-    if m > kw:
+    if aed and m > kw:
         raise ValueError(f'm={m} shifts need an AED window kw >= m '
                          f'(got {kw})')
 
 
 def run_sweeps(H, Z, budget, plain=False, m=24, kw=AED_KW, wb=None,
-               defl_mult=4.0, nibble=NIBBLE):
+               defl_mult=4.0, nibble=NIBBLE, aed=True):
     """At most ``budget`` sweeps in place on H and Z: the kernels for CUDA
     tensors, the plain version for CPU tensors or when ``plain``.  Returns
     the stats of :func:`_sweeps`; H stays a unitary similarity of its
@@ -474,7 +552,7 @@ def run_sweeps(H, Z, budget, plain=False, m=24, kw=AED_KW, wb=None,
         ops = _CudaOps(H, Z, m, kw, wb, defl_mult)
     else:
         ops = _PlainOps(H, Z, m, kw, wb, defl_mult)
-    return _sweeps(ops, H.shape[-1], m, kw, wb, budget, nibble)
+    return _sweeps(ops, H.shape[-1], m, kw, wb, budget, nibble, aed)
 
 
 def _finish(H, Z, stats, return_stats):
@@ -496,7 +574,8 @@ def schur_ms_plain(H, Q, m=24, kw=AED_KW, wb=None, defl_mult=4.0,
     H, Z = H.clone(), Q.clone()
     if budget is None:
         budget = max_sweeps(n, m, max_iter_factor)
-    stats = run_sweeps(H, Z, budget, True, m, kw, wb, defl_mult, nibble)
+    stats = run_sweeps(H, Z, budget, True, m, kw, wb, defl_mult, nibble,
+                       aed)
     return _finish(H, Z, stats, return_stats)
 
 
@@ -511,7 +590,9 @@ def schur_ms(H, Q, m=24, kw=AED_KW, wb=None, defl_mult=4.0,
     skipped chases, flops done, flops needed), hi == 0 meaning converged
     (see :func:`_sweeps` for the two counts).  ``wb`` is the chase window,
     by default :func:`window` of m; windows start at multiples of ``ALIGN``
-    and advance by wb less the overlap m bulges need.  A CUDA tensor goes
+    and advance by wb less the overlap m bulges need.  ``aed=False`` takes
+    the sweep's shifts from the trailing m x m block instead of the AED
+    window (eig_qr_hbm.py's aed=False branch).  A CUDA tensor goes
     through the kernels of ``csrc/schur_ms.cu`` (complex64 only), a CPU
     tensor through the plain version."""
     wb = window(m) if wb is None else wb
@@ -520,5 +601,6 @@ def schur_ms(H, Q, m=24, kw=AED_KW, wb=None, defl_mult=4.0,
     H, Z = H.contiguous().clone(), Q.contiguous().clone()
     if budget is None:
         budget = max_sweeps(n, m, max_iter_factor)
-    stats = run_sweeps(H, Z, budget, False, m, kw, wb, defl_mult, nibble)
+    stats = run_sweeps(H, Z, budget, False, m, kw, wb, defl_mult, nibble,
+                       aed)
     return _finish(H, Z, stats, return_stats)
