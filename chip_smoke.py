@@ -2,9 +2,11 @@
 and drive the port's paths on one CUDA card, forward and backward: the
 Example-1 sweep (order 6, 8 wavelengths, grid 256, float32) through the
 batched small-n kernels, one order-(20, 20) solve (2N = 3362) through the
-large-n route, and the composed eig through the two stand-alone Schur
+large-n route, the composed eig through the two stand-alone Schur
 stages (schur_qr_v2 on the order-6 batch, schur_qr_ms on one matrix at
-orders 6 to 8 and inside one order-(7, 7) solve).
+orders 6 to 8 and inside one order-(7, 7) solve), and the order-6 and order-7
+8-wavelength sweeps through the two batched stages that are on no route
+(schur_qr_baed, schur_qr_packed).
 
     python3 chip_smoke.py
 
@@ -19,19 +21,19 @@ Phases (each prints its results; any failure exits non-zero):
      blocked Hessenberg reduction at n = 640, the NaN contract
   5. the order-6 slice: launch counts of the main path, |t_xx|^2 and the
      raster gradient against a complex128 torch.linalg.eig oracle at 0, 0.2
-     and 10 degrees, at order 6 and at order 10 (2N = 882, one wavelength,
-     which takes the large route)
+     and 10 degrees at order 6, and at 10 degrees at order 10 (2N = 882, one
+     wavelength, which takes the large route)
   6. the order-20 slice: the three stages alone on A = P Q, two sweeps and
      the blocked vectors against their plain versions at this size, one
      fwd+grad with launch counts, |t_xx|^2 and the 10-degree raster gradient
      against the complex128 oracle; then normal incidence (degenerate mode
      pairs): the multishift QR converges and the forward |t_xx|^2 agrees
      with the oracle
-  7. times with CUDA events; the two routes at n = 338, 578 and 882
+  7. times with CUDA events; the two routes at n = 338, 450, 578 and 882
   8. torch.profiler over one order-6 sweep and one order-20 solve: device
      time by kernel, idle share
   9. the stand-alone stages against their plain versions: schur_qr_v2 at
-     (2, 48), schur_qr_ms at n = 64 and 200, schur_ms(aed=False) at n = 300
+     (2, 48), schur_qr_ms at n = 64 and 200, schur_ms(aed=False) at n = 200
      (and at n = 640 against complex128 LAPACK), the NaN / no-NaN contracts
  10. the composed eig (Hessenberg -> stage -> vectors -> refinement) at full
      width: schur_qr_v2 on the (8, 338, 338) order-6 batch, schur_qr_ms on
@@ -39,6 +41,21 @@ Phases (each prints its results; any failure exits non-zero):
      forward and raster gradient, with the small route's Schur stage swapped
      to schur_qr_ms, against the complex128 oracle
  11. times of the stand-alone stages beside schur_qr and the two routes
+ 12. schur_qr_baed and schur_qr_packed against their plain versions on
+     random complex64 batches at (2, 96) and (8, 128), lanes of different
+     kinds in one schur_qr_baed launch, the NaN contracts, what they refuse
+ 13. the path at full width: the composed eig through each of the two on the
+     (8, 338, 338) order-6 and (8, 450, 450) order-7 wave matrices, then the
+     8-wavelength sweep, forward and raster gradient, with the small route's
+     Schur stage swapped: schur_qr_baed at order 6 (0 and 10 degrees) and
+     order 7 (10 degrees), schur_qr_packed at order 6 (10 degrees), against
+     the complex128 oracle
+ 14. times of the two beside schur_qr at B = 8 and n = 338, 450, 578; each
+     against its plain version at the path's shape (8, 338, 338): the state
+     after a budget of sweeps on the wave matrices, one sweep element by
+     element on a random batch; the composed eig and the order-6 sweep
+     through each, and the B = 8 batch through the large route at n = 450
+     and 578
 The line before the last is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}.  Needs no JAX and no network.
 """
@@ -74,20 +91,35 @@ REPLACES = {
     'tri_vectors_blocked': 'torcwa_tpu/ops/vec_blocked.py:34',
     'schur_qr_v2': 'torcwa_tpu/ops/eig_qr_pallas.py:82',
     'schur_qr_ms': 'torcwa_tpu/ops/eig_qr_pallas_ms.py:226',
+    'schur_qr_baed': 'torcwa_tpu/ops/attic/eig_qr_pallas_baed.py:203',
+    'schur_qr_packed': 'torcwa_tpu/ops/attic/eig_qr_pallas_packed.py:54',
 }
 SOURCES = {k: f'torcwa_tpu_torch/csrc/{k}.cu' for k in REPLACES}
 # the v2 QR is the second entry point of the single-shift kernel's source
 SOURCES['schur_qr_v2'] = SOURCES['schur_qr']
 # sizes of the large-route kernel checks on random matrices
 N_MID, N_BIG, N_SLAB = 300, 640, 3362
+# schur_ms(aed=False) against its plain version (every sweep a Python chase)
+N_NOAED = 200
 SMALL = ('hessenberg', 'schur_qr', 'tri_vectors')
 LARGE = ('schur_ms', 'tri_vectors_blocked')
 ALT = ('schur_qr_v2', 'schur_qr_ms')
+BATCHED_ALT = ('schur_qr_baed', 'schur_qr_packed')
 # the stand-alone stages: shifts per sweep of schur_qr_ms on the wave
 # matrices, and the sweeps of schur_qr_v2 that its plain version is timed on
 # at B = 8, n = 338 (in full it would take minutes)
 MS_M = 16
 V2_BUDGET = 20
+# the sweeps the plain versions of the two batched stages are timed on at
+# B = 8, n = 338 (a plain schur_qr_baed sweep is a Python AED pass and a
+# Python chase per lane, ~1 s; the plain single-shift QR takes minutes in full)
+BAED_BUDGET = 2
+PACKED_BUDGET = 10
+# lanes of a batch the plain schur_qr_baed is run on in phase 12
+PLAIN_LANES = 2
+# rows by which kernel and plain may differ per lane after those sweeps
+# (round-off decides which subdiagonal entry of a wave matrix deflates first)
+BOTTOM_BAND = 8
 
 # NVIDIA H100 SXM data sheet: device memory rate and the IEEE float32 rate
 # outside the tensor cores (no TF32)
@@ -738,8 +770,9 @@ def profile_order20(torch, tp, eps):
     t0 = time.perf_counter()
     solve()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # device activity only: recording the ~1e6 host-side operator events of
+    # this solve as well takes four times as long and changes no device time
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         solve()
     kern = [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA]
@@ -829,14 +862,14 @@ def alt_kernel_checks(torch, ek, dev, A_rand, out):
     check(int(st1[0]) > 0 and bool(torch.isnan(torch.diagonal(T1)).all()),
           'schur_qr_ms with a negative budget: NaN eigenvalues')
 
-    A = rand_c64(torch, N_MID, 300, dev)
+    A = rand_c64(torch, N_NOAED, 300, dev)
     H, Q = hessenberg_blocked(A, panel=32)
     cfg = dict(m=8, kw=24, wb=128, aed=False)
     T, Z, st = sm.schur_ms(H, Q, return_stats=True, **cfg)
     t0 = time.perf_counter()
     Tp, Zp, stp = sm.schur_ms_plain(H, Q, return_stats=True, **cfg)
     torch.cuda.synchronize()
-    print(f'-- schur_ms n={N_MID} {cfg}: kernels (hi, sweeps, aed, skipped) '
+    print(f'-- schur_ms n={N_NOAED} {cfg}: kernels (hi, sweeps, aed, skipped) '
           f'{st[:4]}, plain {stp[:4]} in {time.perf_counter() - t0:.1f} s')
     w, wp = torch.diagonal(T), torch.diagonal(Tp)
     d = set_dist(w, wp) / float(wp.abs().max())
@@ -844,13 +877,13 @@ def alt_kernel_checks(torch, ek, dev, A_rand, out):
     print(f'  eigenvalue sets differ by {d:.2e} of the spectral radius; '
           f'residual {res:.2e}, unitarity {orth:.2e}')
     check(st[0] == 0 and stp[0] == 0 and st[2] == 0 and st[3] == 0,
-          f'schur_ms(aed=False) n={N_MID}: both converged, nothing deflated '
+          f'schur_ms(aed=False) n={N_NOAED}: both converged, nothing deflated '
           'by AED, no chase skipped')
     check(d <= 1e-4 and res <= 1e-5 and orth <= 1e-5 and tri,
-          f'schur_ms(aed=False) n={N_MID}: kernels == plain eigenvalues <= '
+          f'schur_ms(aed=False) n={N_NOAED}: kernels == plain eigenvalues <= '
           '1e-4, residual and unitarity <= 1e-5')
     check(0.5 * stp[1] <= st[1] <= 2 * stp[1],
-          f'schur_ms(aed=False) n={N_MID}: sweeps within 2x of plain')
+          f'schur_ms(aed=False) n={N_NOAED}: sweeps within 2x of plain')
 
     A = rand_c64(torch, N_BIG, 640, dev)
     H, Q = hessenberg_blocked(A)
@@ -877,29 +910,59 @@ def alt_kernel_checks(torch, ek, dev, A_rand, out):
     out.update(H640=H, Q640=Q, cfg640=cfg, sweeps640=(st[1], sta[1]))
 
 
+def eig_checks(torch, label, A, w, V):
+    """Eigenvalues of a (B, n, n) batch against the complex128 oracle and
+    the eigen-residual after the refinement, both relative."""
+    c128 = torch.complex128
+    ew = 0.
+    for b in range(A.shape[0]):
+        w_ref = torch.linalg.eigvals(A[b].to(c128))
+        ew = max(ew, set_dist(w[b].to(c128), w_ref)
+                 / float(w_ref.abs().max()))
+    r = float(((A @ V - V * w[..., None, :]).abs().amax((-2, -1))
+               / A.abs().amax((-2, -1))).max())
+    print(f'  {label}: eigenvalues vs complex128 torch.linalg.eig '
+          f'{ew:.2e} of the spectral radius; max|A V - V w| / max|A| = '
+          f'{r:.2e} after the refinement')
+    check(ew <= 1e-4, f'{label}: eigenvalues within 1e-4 of the '
+          'spectral radius of the complex128 oracle')
+    check(r <= 1e-4, f'{label}: eigen-residual after refinement <= 1e-4')
+
+
+def partial_state(torch, A, w_ref, Tb, Zb, hib, poisoned=False):
+    """What an unfinished Schur stage holds after a budget of sweeps on the
+    (B, n, n) batch A with complex128 eigenvalues w_ref: (the part of
+    Z^H A Z below its subdiagonal and its upper triangle against T, both
+    over the least ||A||_F; the unitarity of Z; the deflated eigenvalues
+    against w_ref over the spectral radius; the rows deflated, summed over
+    the lanes).  A stage that has put NaN on the diagonal of an unfinished
+    lane (`poisoned`) is held to its strict upper triangle, and its deflated
+    eigenvalues are read from the diagonal of Z^H A Z."""
+    c128 = torch.complex128
+    B, n = A.shape[0], A.shape[-1]
+    rho = float(w_ref.abs().max())
+    afro = float(torch.linalg.matrix_norm(A).min())
+    eye = torch.eye(n, dtype=A.dtype, device=A.device)
+    Hs = Zb.mH.to(c128) @ A.to(c128) @ Zb.to(c128)
+    below = float(torch.linalg.matrix_norm(torch.tril(Hs, -2)).max())
+    if poisoned:
+        Tb = torch.where(eye.real > 0, torch.zeros_like(Tb), Tb)
+    upper = float(torch.linalg.matrix_norm(
+        torch.triu(Hs, 1 if poisoned else 0) - Tb).max())
+    orth = float((Zb.mH @ Zb - eye).abs().max())
+    dg = torch.diagonal(Hs if poisoned else Tb, dim1=-2, dim2=-1)
+    dw = max(nearest_err(dg[b, int(hib[b]) + 1:].to(c128), w_ref[b])
+             if int(hib[b]) < n - 1 else 0. for b in range(B))
+    return below / afro, upper / afro, orth, dw / rho, \
+        int((n - 1 - hib).sum())
+
+
 def alt_path(torch, tp, ek, dev, A6, H6, Q6, eps32, out):
     """Phase 10: the composed eig through the stand-alone stages at full
     width, and one order-(7, 7) solve through schur_qr_ms."""
     from torcwa_tpu_torch.ops import eig_qr as eq, schur_qr_ms as sq
     c128 = torch.complex128
     inc = math.radians(WELL_POSED_DEG)
-
-    def eig_checks(label, A, w, V):
-        """Eigenvalues against the complex128 oracle and the eigen-residual
-        after the refinement, both relative."""
-        ew = 0.
-        for b in range(A.shape[0]):
-            w_ref = torch.linalg.eigvals(A[b].to(c128))
-            ew = max(ew, set_dist(w[b].to(c128), w_ref)
-                     / float(w_ref.abs().max()))
-        r = float(((A @ V - V * w[..., None, :]).abs().amax((-2, -1))
-                   / A.abs().amax((-2, -1))).max())
-        print(f'  {label}: eigenvalues vs complex128 torch.linalg.eig '
-              f'{ew:.2e} of the spectral radius; max|A V - V w| / max|A| = '
-              f'{r:.2e} after the refinement')
-        check(ew <= 1e-4, f'{label}: eigenvalues within 1e-4 of the '
-              'spectral radius of the complex128 oracle')
-        check(r <= 1e-4, f'{label}: eigen-residual after refinement <= 1e-4')
 
     # schur_qr_v2 on the order-6 batch
     B6, n6 = A6.shape[0], A6.shape[-1]
@@ -917,7 +980,7 @@ def alt_path(torch, tp, ek, dev, A6, H6, Q6, eps32, out):
     T, Z, (hi, sw, rot) = ek.schur_qr_v2(H6, Q6, return_stats=True)
     print(f'  sweeps {sw.tolist()}, rotations {rot.tolist()}')
     check(bool((hi == 0).all()), 'schur_qr_v2: every order-6 lane converged')
-    eig_checks('schur_qr_v2, order 6', A6, w, V)
+    eig_checks(torch, 'schur_qr_v2, order 6', A6, w, V)
     out['v2_rot'] = int(rot.sum())
     # The plain version takes ~90 s for ONE of these lanes in full, so it
     # meets the kernel at this shape twice.  First element by element after
@@ -947,21 +1010,6 @@ def alt_path(torch, tp, ek, dev, A6, H6, Q6, eps32, out):
     # (an unfinished T has lost its subdiagonal), and what it has deflated
     # must be eigenvalues of A
     w_ref = torch.linalg.eigvals(A6.to(c128))
-    rho = float(w_ref.abs().max())
-    afro = float(torch.linalg.matrix_norm(A6).min())
-    eye = torch.eye(n6, dtype=A6.dtype, device=dev)
-
-    def partial_state(Tb, Zb, hib):
-        Hs = (Zb.mH.to(c128) @ A6.to(c128) @ Zb.to(c128))
-        below = float(torch.linalg.matrix_norm(torch.tril(Hs, -2)).max())
-        upper = float(torch.linalg.matrix_norm(torch.triu(Hs) - Tb).max())
-        orth = float((Zb.mH @ Zb - eye).abs().max())
-        dw = max(nearest_err(torch.diagonal(Tb[b])[int(hib[b]) + 1:]
-                             .to(c128), w_ref[b]) if int(hib[b]) < n6 - 1
-                 else 0. for b in range(B6))
-        return below / afro, upper / afro, orth, dw / rho, \
-            int((n6 - 1 - hib).sum())
-
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
     ev[0].record()
     Tk, Zk, (hik, swk, rotk) = ek.schur_qr_v2(H6, Q6, max_iters=V2_BUDGET,
@@ -975,7 +1023,8 @@ def alt_path(torch, tp, ek, dev, A6, H6, Q6, eps32, out):
     out['v2_budget_ms'] = (ev[0].elapsed_time(ev[1]),
                            ev[2].elapsed_time(ev[3]))
     out['v2_budget_rot'] = int(rotk.sum())
-    pk, pp = partial_state(Tk, Zk, hik), partial_state(Tp, Zp, hip)
+    pk = partial_state(torch, A6, w_ref, Tk, Zk, hik)
+    pp = partial_state(torch, A6, w_ref, Tp, Zp, hip)
     print(f'  the first {V2_BUDGET} sweeps at B={B6} n={n6}: kernel '
           f'{out["v2_budget_ms"][0]:.1f} ms, plain '
           f'{out["v2_budget_ms"][1]:.1f} ms; rotations {int(rotk.sum())} / '
@@ -1017,7 +1066,7 @@ def alt_path(torch, tp, ek, dev, A6, H6, Q6, eps32, out):
               f'schur_qr_ms n={n}: converged, Schur residual and unitarity '
               '<= 1e-5')
         w, V = eq.eig_small(Ao, stage)
-        eig_checks(f'schur_qr_ms, order {order}', Ao, w, V)
+        eig_checks(torch, f'schur_qr_ms, order {order}', Ao, w, V)
         out['ms'][n] = dict(A=Ao, H=H[0], Q=Q[0], st=st)
         if order == 6:
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
@@ -1126,6 +1175,429 @@ def alt_times(torch, ek, smi, H6, Q6, out, times, bounds):
           f'{out["sweeps640"][1]} sweeps [{smi}]')
 
 
+def batched_alt_checks(torch, ek, dev, out):
+    """Phase 12: schur_qr_baed and schur_qr_packed against their plain
+    versions on random complex64 batches."""
+    from torcwa_tpu_torch.ops import schur_qr_baed as sb, schur_qr_packed as sp
+    c128 = torch.complex128
+
+    def batch_quality(A, T, Z):
+        q = [schur_quality(torch, A[b], T[b], Z[b]) for b in range(len(A))]
+        return max(x[0] for x in q), max(x[1] for x in q), \
+            all(x[2] for x in q)
+
+    def sets(A, T, Tp):
+        """Eigenvalue sets, kernel against plain (on the lanes Tp has) and
+        against complex128 (every lane), largest over the lanes, relative
+        to the spectral radius."""
+        d = do = 0.
+        for b in range(len(A)):
+            w = torch.diagonal(T[b])
+            w_ref = torch.linalg.eigvals(A[b].to(c128))
+            rho = float(w_ref.abs().max())
+            do = max(do, set_dist(w.to(c128), w_ref) / rho)
+            if b < len(Tp):
+                d = max(d, set_dist(w, torch.diagonal(Tp[b])) / rho)
+        return d, do
+
+    for B, n in ((2, 96), (8, 128)):
+        A = torch.stack([rand_c64(torch, n, 1000 * n + b, dev)
+                         for b in range(B)])
+        H, Q = ek.hessenberg(A)
+        T, Z, st = sb.schur_qr_baed(H, Q, return_stats=True)
+        # the plain version goes lane by lane, ~10-20 s a lane at this size
+        # (a Python AED pass and a Python chase per sweep): the first
+        # PLAIN_LANES lanes
+        t0 = time.perf_counter()
+        Tp, Zp, stp = sb.schur_qr_baed_plain(H[:PLAIN_LANES], Q[:PLAIN_LANES],
+                                             return_stats=True)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        d, do = sets(A, T, Tp)
+        res, orth, tri = batch_quality(A, T, Z)
+        print(f'-- schur_qr_baed B={B} n={n} m=8 kw=64: sweeps kernel '
+              f'{st[1].tolist()} plain (first {len(Tp)} lanes) '
+              f'{stp[1].tolist()} in {secs:.1f} s; '
+              f'rotations {st[2].tolist()} / {stp[2].tolist()}; rows AED '
+              f'deflated {st[3].tolist()} / {stp[3].tolist()}; eigenvalue '
+              f'sets differ by {d:.2e} of the spectral radius, from '
+              f'complex128 LAPACK by {do:.2e}; residual {res:.2e}, unitarity '
+              f'{orth:.2e}')
+        check(bool((st[0] == 0).all()) and bool((stp[0] == 0).all()),
+              f'schur_qr_baed ({B}, {n}): every lane converged, kernel and '
+              'plain')
+        check(d <= 1e-4 and do <= 1e-4, f'schur_qr_baed ({B}, {n}): kernel '
+              '== plain == complex128 eigenvalues <= 1e-4')
+        check(res <= 1e-5 and orth <= 1e-5 and tri, f'schur_qr_baed ({B}, '
+              f'{n}): Schur residual and unitarity <= 1e-5, T triangular')
+        mk, mp = int(st[1][:len(Tp)].max()), int(stp[1].max())
+        check(0.5 * mp <= mk <= 2 * mp and bool((st[3] > n // 2).all()),
+              f'schur_qr_baed ({B}, {n}): sweeps within 2x of plain, AED '
+              'deflates most rows')
+
+        T, Z, st = sp.schur_qr_packed(H, Q, return_stats=True)
+        t0 = time.perf_counter()
+        Tp, Zp, stp = sp.schur_qr_packed_plain(H, Q, return_stats=True)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        d, do = sets(A, T, Tp)
+        res, orth, tri = batch_quality(A, T, Z)
+        print(f'-- schur_qr_packed B={B} n={n}: sweeps kernel '
+              f'{st[1].tolist()} plain {stp[1].tolist()} in {secs:.1f} s; '
+              f'rotations {st[2].tolist()} / {stp[2].tolist()}; eigenvalue '
+              f'sets differ by {d:.2e} of the spectral radius, from '
+              f'complex128 LAPACK by {do:.2e}; residual {res:.2e}, unitarity '
+              f'{orth:.2e}')
+        check(bool((st[0] == 0).all()) and bool((stp[0] == 0).all()),
+              f'schur_qr_packed ({B}, {n}): every lane converged, kernel and '
+              'plain')
+        check(d <= 1e-4 and do <= 1e-4, f'schur_qr_packed ({B}, {n}): kernel '
+              '== plain == complex128 eigenvalues <= 1e-4')
+        check(res <= 1e-5 and orth <= 1e-5 and tri, f'schur_qr_packed ({B}, '
+              f'{n}): Schur residual and unitarity <= 1e-5, T triangular')
+        mk, mp = int(st[1].max()), int(stp[1].max())
+        check(0.5 * mp <= mk <= 2 * mp,
+              f'schur_qr_packed ({B}, {n}): sweeps within 2x of plain')
+        # one sweep is forward-stable on a random batch: element by element
+        # (after one sweep the diagonal is NaN by contract: the strict upper
+        # part of T, and Z)
+        T1, Z1 = sp.schur_qr_packed(H, Q, max_iters=1)
+        T1p, Z1p = sp.schur_qr_packed_plain(H, Q, max_iters=1)
+        a2 = float(torch.linalg.matrix_norm(A, ord=2).min())
+        dT = float((torch.triu(T1, 1) - torch.triu(T1p, 1)).abs().max())
+        dZ = float((Z1 - Z1p).abs().max())
+        print(f'   one sweep: max|T - T_plain| = {dT:.3e} ({dT / a2:.2e} '
+              f'||A||_2), max|Z - Z_plain| = {dZ:.3e}')
+        check(dT <= 1e-4 * a2 and dZ <= 1e-4, f'schur_qr_packed ({B}, {n}), '
+              'one sweep: kernel == plain element-wise, T within 1e-4 '
+              '||A||_2, Z within 1e-4')
+
+    # lanes of different kinds in one launch: exactly real, antisymmetric
+    # (purely imaginary spectrum), complex, and one that is triangular already
+    n = 96
+    rng = np.random.default_rng(3)
+    A0 = rng.standard_normal((n, n))
+    Bm = rng.standard_normal((n, n))
+    lanes = [A0, Bm - Bm.T, rng.standard_normal((n, n))
+             + 1j * rng.standard_normal((n, n)),
+             np.triu(rng.standard_normal((n, n)))]
+    A = torch.as_tensor(np.stack(lanes).astype(np.complex64) * 0.3,
+                        device=dev)
+    H, Q = ek.hessenberg(A)
+    H[3], Q[3] = A[3], torch.eye(n, dtype=A.dtype, device=dev)
+    T, Z, st = sb.schur_qr_baed(H, Q, return_stats=True)
+    res, orth, tri = batch_quality(A, T, Z)
+    do = max(set_dist(torch.diagonal(T[b]).to(c128),
+                      torch.linalg.eigvals(A[b].to(c128)))
+             / float(A[b].abs().max()) for b in range(len(A)))
+    print(f'-- schur_qr_baed, a real, an antisymmetric, a complex and a '
+          f'triangular lane in one launch (n = {n}): sweeps {st[1].tolist()},'
+          f' rotations {st[2].tolist()}; eigenvalues vs complex128 {do:.2e} '
+          f'max|A|; residual {res:.2e}, unitarity {orth:.2e}')
+    check(bool((st[0] == 0).all()) and do <= 1e-4 and res <= 1e-5
+          and orth <= 1e-5 and tri,
+          'schur_qr_baed, lanes of different kinds: converged, eigenvalues '
+          '<= 1e-4, residual and unitarity <= 1e-5')
+    check(int(st[1][3]) <= 2 and int(st[2][3]) == 0
+          and int(st[1][:3].min()) > 2,
+          'schur_qr_baed counts sweeps per lane (the triangular lane ends at '
+          'once)')
+
+    T1, _, st1 = sb.schur_qr_baed(H, Q, max_iter_factor=-100,
+                                  return_stats=True)
+    check(bool((st1[0] > 0).all()) and bool((st1[1] == 0).all()) and bool(
+        torch.isnan(torch.diagonal(T1, dim1=-2, dim2=-1)).all()),
+        'schur_qr_baed with a negative budget: no sweep, NaN eigenvalues')
+    T1, _, st1 = sp.schur_qr_packed(H[:3].contiguous(), Q[:3].contiguous(),
+                                    max_iter_factor=1, return_stats=True)
+    check(bool((st1[0] > 0).all()) and bool(
+        torch.isnan(torch.diagonal(T1, dim1=-2, dim2=-1)).all()),
+        'schur_qr_packed with max_iter_factor=1: NaN eigenvalues')
+
+    def raises(exc, fn, *a, **kw):
+        try:
+            fn(*a, **kw)
+        except exc:
+            return True
+        return False
+
+    Hs, Qs = H[:, :64, :64].contiguous(), Q[:, :64, :64].contiguous()
+    check(raises(ValueError, sb.schur_qr_baed, Hs, Qs),
+          'schur_qr_baed raises ValueError for n = 64 < kw + 10')
+    check(raises(TypeError, sb.schur_qr_baed, H.to(c128), Q.to(c128))
+          and raises(TypeError, sp.schur_qr_packed, H.to(c128), Q.to(c128)),
+          'both raise TypeError for complex128 on the card')
+
+
+def batched_alt_path(torch, tp, ek, dev, eps32, out):
+    """Phase 13: the composed eig and the 8-wavelength sweep through
+    schur_qr_baed and schur_qr_packed at full width."""
+    from torcwa_tpu_torch.ops import (eig_qr as eq, schur_qr_baed as sb,
+                                      schur_qr_packed as sp)
+    c128 = torch.complex128
+    inc = math.radians(WELL_POSED_DEG)
+    stages = {'schur_qr_baed': sb.schur_qr_baed,
+              'schur_qr_packed': sp.schur_qr_packed}
+    out['wave'] = {}
+    for order in (6, 7, 8):
+        _, A = wave_matrices(torch, tp, (order, order), LAMS, inc,
+                             torch.float32, dev)
+        A = A.contiguous()
+        H, Q = ek.hessenberg(A)
+        out['wave'][A.shape[-1]] = dict(A=A, H=H, Q=Q)
+        if order == 8:          # timed in phase 14 only
+            continue
+        B, n = A.shape[0], A.shape[-1]
+        w_ref = [torch.linalg.eigvals(A[b].to(c128)) for b in range(B)]
+        for name, stage in stages.items():
+            print(f'-- hessenberg -> {name} -> tri_vectors, the order-{order} '
+                  f'wave matrices at {WELL_POSED_DEG} deg, B={B} n={n}')
+            T, Z, st = stage(H, Q, return_stats=True)
+            q = [schur_quality(torch, A[b], T[b], Z[b]) for b in range(B)]
+            res, orth = max(x[0] for x in q), max(x[1] for x in q)
+            dw = max(set_dist(torch.diagonal(T[b]).to(c128), w_ref[b])
+                     / float(w_ref[b].abs().max()) for b in range(B))
+            print(f'  sweeps {st[1].tolist()}, rotations {st[2].tolist()}'
+                  + (f', rows AED deflated {st[3].tolist()}'
+                     if len(st) > 3 else '')
+                  + f'; Schur residual {res:.2e}, unitarity {orth:.2e}, '
+                  f'eigenvalues vs complex128 {dw:.2e} of the spectral '
+                  'radius')
+            check(bool((st[0] == 0).all()) and all(x[2] for x in q)
+                  and res <= 1e-5 and orth <= 1e-5 and dw <= 1e-4,
+                  f'{name} n={n}: every lane converged, Schur residual and '
+                  'unitarity <= 1e-5, eigenvalues <= 1e-4')
+            w, V = eq.eig_small(A, stage)
+            eig_checks(torch, f'{name}, order {order}', A, w, V)
+
+    # the sweeps, with the small route's Schur stage swapped
+    oracle = {}
+
+    def sweep(name, order, tilt_deg):
+        label = (f'order-{order} sweep of {len(LAMS)} wavelengths at '
+                 f'{tilt_deg} deg through {name}')
+        tilt = math.radians(tilt_deg)
+        keep = eq.SMALL_SCHUR
+        eq.SMALL_SCHUR = stages[name]
+        try:
+            ek.reset_launch_counts()
+            T_k, g_k = fwd_grad(torch, tp, eps32, LAMS, (order, order), tilt,
+                                'kernels')
+            torch.cuda.synchronize()
+            lm = dict(ek.LAUNCHES)
+        finally:
+            eq.SMALL_SCHUR = keep
+        if (order, tilt_deg) not in oracle:
+            oracle[order, tilt_deg] = fwd_grad(
+                torch, tp, eps32.double(), LAMS, (order, order), tilt,
+                'torch')
+        T_o, g_o = oracle[order, tilt_deg]
+        dT = float((T_k.double() - T_o).abs().max())
+        cos_k = cosine(g_k, g_o)
+        print(f'-- {label}: launches {lm}; |t_xx|^2 {T_k.tolist()}; vs the '
+              f'complex128 oracle {dT:.2e}; raster-gradient cosine '
+              f'{cos_k:.6f}')
+        check(lm[name] >= 1 and lm['schur_qr'] == 0 and lm['schur_ms'] == 0
+              and lm['hessenberg'] >= 1 and lm['tri_vectors'] >= 1,
+              f'{label}: {name} launched ({lm[name]}), schur_qr and schur_ms '
+              'not')
+        check(dT <= 1e-4, f'{label}: |t_xx|^2 vs oracle {dT:.2e} <= 1e-4')
+        check(bool(torch.isfinite(g_k).all()), f'{label}: gradient finite')
+        if tilt_deg >= WELL_POSED_DEG:
+            check(cos_k >= 0.99, f'{label}: raster gradient cosine '
+                  f'{cos_k:.6f} >= 0.99')
+        return lm[name]
+
+    sweep('schur_qr_baed', 6, 0.)
+    out['launches'] = {
+        'schur_qr_baed': sweep('schur_qr_baed', 6, WELL_POSED_DEG),
+        'schur_qr_packed': sweep('schur_qr_packed', 6, WELL_POSED_DEG)}
+    sweep('schur_qr_baed', 7, WELL_POSED_DEG)
+
+
+def batched_alt_times(torch, tp, ek, smi, eps32, out, times, bounds):
+    """Phase 14: the two batched stages beside schur_qr, and the B = 8 batch
+    through the large route."""
+    from functools import partial
+    from torcwa_tpu_torch.ops import (eig_qr as eq, schur_qr_baed as sb,
+                                      schur_qr_packed as sp)
+    inc = math.radians(WELL_POSED_DEG)
+    baed16 = partial(sb.schur_qr_baed, m=16)
+    print(f'  the 8-wavelength wave matrices at {WELL_POSED_DEG} deg, median '
+          'of 3, ms:')
+    for n, rec in out['wave'].items():
+        A, H, Q = rec['A'], rec['H'], rec['Q']
+        B = A.shape[0]
+        t_qr = cuda_ms(torch, lambda: ek.schur_qr(H, Q), reps=3)
+        t_pk = cuda_ms(torch, lambda: sp.schur_qr_packed(H, Q), reps=3)
+        t_b8 = cuda_ms(torch, lambda: sb.schur_qr_baed(H, Q), reps=3)
+        t_b16 = cuda_ms(torch, lambda: baed16(H, Q), reps=3)
+        s_qr = ek.schur_qr(H, Q, return_stats=True)[2]
+        s_pk = sp.schur_qr_packed(H, Q, return_stats=True)[2]
+        s_b8 = sb.schur_qr_baed(H, Q, return_stats=True)[2]
+        s_b16 = baed16(H, Q, return_stats=True)[2]
+        ok = all(bool((s[0] == 0).all()) for s in (s_qr, s_pk, s_b8, s_b16))
+        check(ok, f'n = {n}: schur_qr, schur_qr_packed and schur_qr_baed '
+              '(m = 8, 16) converge on every lane')
+        b_pk = bound(4 * B * n * n * C64, int(s_pk[2].sum()) * 2 * n * 20)
+        b_b8 = bound(4 * B * n * n * C64, int(s_b8[2].sum()) * 2 * n * 20
+                     + 8 * int(s_b8[4].sum()))
+        print(f'    B = {B}, n = {n}: schur_qr {t_qr:.1f} (sweeps '
+              f'{s_qr[1].tolist()}); schur_qr_packed {t_pk:.1f} (sweeps '
+              f'{s_pk[1].tolist()}, rotations {s_pk[2].tolist()}, bound '
+              f'{b_pk[0]:.4f} by {b_pk[1]}); schur_qr_baed m=8 {t_b8:.1f} '
+              f'(sweeps {s_b8[1].tolist()}, rotations {s_b8[2].tolist()}, '
+              f'rows AED deflated {s_b8[3].tolist()}, bound {b_b8[0]:.4f} by '
+              f'{b_b8[1]}), m=16 {t_b16:.1f} (sweeps {s_b16[1].tolist()}, '
+              f'rotations {s_b16[2].tolist()}) [{smi}]')
+        t_e = {k: cuda_ms(torch, lambda f=f: eq.eig_small(A, f), reps=3)
+               for k, f in (('schur_qr', ek.schur_qr),
+                            ('schur_qr_packed', sp.schur_qr_packed),
+                            ('schur_qr_baed', sb.schur_qr_baed))}
+        t_lib = cuda_ms(torch, lambda: torch.linalg.eig(A), reps=1)
+        print(f'    B = {B}, n = {n}: the composed eig through '
+              + ', '.join(f'{k} {v:.1f}' for k, v in t_e.items())
+              + f'; library figure torch.linalg.eig complex64 {t_lib:.1f} '
+              f'(all stages, one run) [{smi}]')
+        if n == 338:
+            out['full'] = {'schur_qr_baed': (t_b8, b_b8),
+                           'schur_qr_packed': (t_pk, b_pk)}
+
+    # the work the plain versions can be timed on, from the order-6 H, Q.
+    # Kernel and plain meet at this shape as schur_qr_v2 and its plain
+    # version do in phase 10: after the budget each must hold a unitary Z
+    # whose similarity Z^H A Z is upper Hessenberg with T as its strict upper
+    # triangle (an unfinished lane's diagonal is NaN by contract), what each
+    # has deflated must be eigenvalues of A, and the two must have come as
+    # far (rows deflated, window bottoms)
+    rec = out['wave'][338]
+    A, H, Q = rec['A'], rec['H'], rec['Q']
+    B, n = H.shape[0], H.shape[-1]
+    w_ref = torch.linalg.eigvals(A.to(torch.complex128))
+
+    def budgeted(name, kernel, plain, budget, aed):
+        kernel(H, Q, max_iters=budget)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        Tk, Zk, sk = kernel(H, Q, max_iters=budget, return_stats=True)
+        ev[1].record()
+        ev[2].record()
+        Tp, Zp, skp = plain(H, Q, max_iters=budget, return_stats=True)
+        ev[3].record()
+        ev[3].synchronize()
+        t_k, t_p = ev[0].elapsed_time(ev[1]), ev[2].elapsed_time(ev[3])
+        pk = partial_state(torch, A, w_ref, Tk, Zk, sk[0], poisoned=True)
+        pp = partial_state(torch, A, w_ref, Tp, Zp, skp[0], poisoned=True)
+        rk, rp = int(sk[2].sum()), int(skp[2].sum())
+        cols = (0, 2, 3) if aed else (0, 2)
+        print(f'  {name}, the first {budget} sweeps at B={B} n={n}: kernel '
+              f'{t_k:.1f} ms, plain {t_p:.1f} ms; (bottom, rotations'
+              + (', rows AED deflated' if aed else '') + ') kernel '
+              + ' '.join(str(sk[i].tolist()) for i in cols) + ' plain '
+              + ' '.join(str(skp[i].tolist()) for i in cols)
+              + '; (below the subdiagonal of Z^H A Z, its strict upper '
+              'triangle against T, unitarity of Z, deflated eigenvalues '
+              'against complex128, eigenvalues deflated) kernel '
+              f'({pk[0]:.2e}, {pk[1]:.2e}, {pk[2]:.2e}, {pk[3]:.2e}, {pk[4]}) '
+              f'plain ({pp[0]:.2e}, {pp[1]:.2e}, {pp[2]:.2e}, {pp[3]:.2e}, '
+              f'{pp[4]}) [{smi}]')
+        check(bool((sk[1] == budget).all()) and bool((skp[1] == budget).all())
+              and 0.5 * rp <= rk <= 2 * rp,
+              f'{name}, {budget} sweeps on the wave matrices: kernel and '
+              'plain rotate within 2x of each other')
+        check(max(pk[:3]) <= 1e-5 and pk[3] <= 1e-4 and max(pp[:3]) <= 1e-5
+              and pp[3] <= 1e-4,
+              f'{name}, {budget} sweeps: kernel and plain each keep a unitary '
+              'Hessenberg similarity with T its strict upper triangle (1e-5) '
+              'and deflate eigenvalues of A (1e-4)')
+        gap = int((sk[0] - skp[0]).abs().max())
+        check(gap <= BOTTOM_BAND and 0.5 * pp[4] <= pk[4] <= 2 * pp[4],
+              f'{name}, {budget} sweeps: window bottoms of kernel and plain '
+              f'within {BOTTOM_BAND} rows of each other on every lane '
+              f'({gap}), rows deflated within 2x')
+        if aed:
+            dk = int((sk[3] - skp[3]).abs().max())
+            check(bool((sk[3] >= 1).all()) and dk <= BOTTOM_BAND,
+                  f'{name}, {budget} sweeps: AED deflates on every lane, '
+                  f'kernel and plain within {BOTTOM_BAND} rows per lane '
+                  f'({dk})')
+        return t_k, t_p, sk
+
+    t_k, t_p, sk = budgeted('schur_qr_baed', sb.schur_qr_baed,
+                            sb.schur_qr_baed_plain, BAED_BUDGET, True)
+    times['schur_qr_baed'] = (t_k, t_p, f'B=8 n=338 m=8 kw=64, the first '
+                              f'{BAED_BUDGET} sweeps')
+    bounds['schur_qr_baed'] = bound(4 * B * n * n * C64,
+                                    int(sk[2].sum()) * 2 * n * 20
+                                    + 8 * int(sk[4].sum()))
+    t_k, t_p, sk = budgeted('schur_qr_packed', sp.schur_qr_packed,
+                            sp.schur_qr_packed_plain, PACKED_BUDGET, False)
+    times['schur_qr_packed'] = (t_k, t_p, f'B=8 n=338, the first '
+                                f'{PACKED_BUDGET} sweeps')
+    bounds['schur_qr_packed'] = bound(4 * B * n * n * C64,
+                                      int(sk[2].sum()) * 2 * n * 20)
+
+    # one sweep is forward-stable on a random batch of the path's shape:
+    # schur_qr_packed element by element (the strict upper part of T, whose
+    # diagonal is NaN after one sweep, and Z), as schur_qr_v2 in phase 10;
+    # schur_qr_baed, whose first sweep on a random matrix is an AED pass
+    # that deflates nothing and a chase of m bulges, likewise
+    Ar = torch.stack([rand_c64(torch, n, 100 + b, A.device)
+                      for b in range(B)])
+    Hr, Qr = ek.hessenberg(Ar)
+    a2 = float(torch.linalg.matrix_norm(Ar, ord=2).min())
+    for name, kernel, plain in (
+            ('schur_qr_packed', sp.schur_qr_packed, sp.schur_qr_packed_plain),
+            ('schur_qr_baed', sb.schur_qr_baed, sb.schur_qr_baed_plain)):
+        T1, Z1 = kernel(Hr, Qr, max_iters=1)
+        T1p, Z1p = plain(Hr, Qr, max_iters=1)
+        dT = float((torch.triu(T1, 1) - torch.triu(T1p, 1)).abs().max())
+        dZ = float((Z1 - Z1p).abs().max())
+        print(f'  {name}, one sweep on a random batch, B={B} n={n}: '
+              f'max|T - T_plain| = {dT:.3e} ({dT / a2:.2e} ||A||_2), '
+              f'max|Z - Z_plain| = {dZ:.3e}')
+        check(dT <= 1e-4 * a2 and dZ <= 1e-4,
+              f'{name} ({B}, {n}), one sweep: kernel == plain element-wise, '
+              'T within 1e-4 ||A||_2, Z within 1e-4')
+        out['err_' + name[len('schur_qr_'):]] = dT
+
+    # the order-6 sweep through each stage beside the default
+    keep = eq.SMALL_SCHUR
+    try:
+        for name, stage in (('schur_qr (the route)', ek.schur_qr),
+                            ('schur_qr_packed', sp.schur_qr_packed),
+                            ('schur_qr_baed', sb.schur_qr_baed),
+                            ('schur_qr_baed m=16', baed16)):
+            eq.SMALL_SCHUR = stage
+            ms = cuda_ms(torch, lambda: fwd_grad(torch, tp, eps32, LAMS,
+                                                 (6, 6), inc, 'kernels'),
+                         reps=3)
+            print(f'  order-6 fwd+grad at {WELL_POSED_DEG} deg through '
+                  f'{name}: {ms / len(LAMS) / 1e3:.6f} s/solve ({ms:.3f} ms '
+                  f'per 8-wavelength sweep) [{smi}]')
+    finally:
+        eq.SMALL_SCHUR = keep
+
+    # the same batches through the large route, lane by lane (one run, its
+    # kernels warm from phase 7: host-paced seconds; the small route on the
+    # same batch is the composed eig through schur_qr above)
+    keep = eq.LARGE_MIN_N
+    eq.LARGE_MIN_N = 0
+    try:
+        for n in (450, 578):
+            A = out['wave'][n]['A']
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            eq.eig_qr(A)
+            ev[1].record()
+            ev[1].synchronize()
+            t_large = ev[0].elapsed_time(ev[1])
+            print(f'    eig_qr on the B = {A.shape[0]}, n = {n} batch through '
+                  f'the large route (lane by lane): {t_large:.1f} ms [{smi}]')
+    finally:
+        eq.LARGE_MIN_N = keep
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1214,7 +1686,7 @@ def main():
     check(bool(torch.isfinite(g_k).all()), 'raster gradient finite')
     for tilt_deg in (0.2, WELL_POSED_DEG):
         grad_checks(torch, tp, eps32, LAMS, (6, 6), tilt_deg)
-        grad_checks(torch, tp, eps32, LAMS[3:4], (10, 10), tilt_deg)
+    grad_checks(torch, tp, eps32, LAMS[3:4], (10, 10), WELL_POSED_DEG)
     check(f32_precision_pinned(), 'IEEE f32 still pinned after the slice')
 
     phase('6. the order-20 slice (2N = 3362, one wavelength, grid 256, '
@@ -1269,7 +1741,7 @@ def main():
     ms_20f, ms_20b = fwd_bwd_ms(torch, tp, o20['eps'], LAM_L, ORDER_L, inc,
                                 'kernels')
     ms_20 = ms_20f + ms_20b
-    ms_eig = cuda_ms(torch, lambda: eq.eig_qr(A20), reps=3)
+    ms_eig = cuda_ms(torch, lambda: eq.eig_qr(A20), reps=1)
     ms_hess = cuda_ms(torch, lambda: hessenberg_blocked(A20), reps=1)
     ms_ms = cuda_ms(torch, lambda: sm.schur_ms(H20, Q20, **cfgL), reps=3)
     ms_vecs = cuda_ms(torch, lambda: vb.tri_vectors_blocked(T20), reps=3)
@@ -1283,7 +1755,7 @@ def main():
                                              ORDER_L, inc, 'torch'), reps=1)
     print(f'  order-20 fwd+grad, eig kernels: {ms_20 / 1e3:.6f} s/solve '
           f'(medians of 3 after the check run: forward {ms_20f / 1e3:.6f} '
-          f's, backward {ms_20b / 1e3:.6f} s; eig_qr alone, median of 3, '
+          f's, backward {ms_20b / 1e3:.6f} s; eig_qr alone, one run, '
           f'{ms_eig / 1e3:.6f} s, which leaves '
           f'{(ms_20f - ms_eig) / 1e3:.6f} s for conv + tail + Redheffer, a '
           f'difference of two host-paced medians) [{smi}]')
@@ -1336,16 +1808,16 @@ def main():
               f'{bounds[k][0]:.4f} ms by {bounds[k][1]} ({shape}) [{smi}]')
 
     print('  the two routes of eig_qr on one wave matrix (500 nm, 10 deg), '
-          'median of 3:')
+          'one run after a warm-up:')
     keep = eq.LARGE_MIN_N
     for order in (6, 7, 8, 10):
         _, Ao = wave_matrices(torch, tp, (order, order), LAM_L, inc,
                               torch.float32, dev)
         Ao = Ao.contiguous()
         eq.LARGE_MIN_N = 10 ** 9
-        t_small = cuda_ms(torch, lambda: eq.eig_qr(Ao), reps=3)
+        t_small = cuda_ms(torch, lambda: eq.eig_qr(Ao), reps=1)
         eq.LARGE_MIN_N = 0
-        t_large = cuda_ms(torch, lambda: eq.eig_qr(Ao), reps=3)
+        t_large = cuda_ms(torch, lambda: eq.eig_qr(Ao), reps=1)
         eq.LARGE_MIN_N = keep
         print(f'    n = {Ao.shape[-1]}: small route {t_small:.1f} ms, large '
               f'route {t_large:.1f} ms [{smi}]')
@@ -1373,13 +1845,34 @@ def main():
         print(f'  {k}: kernel {tk:.3f} ms, plain {tpl:.3f} ms, bound '
               f'{bounds[k][0]:.4f} ms by {bounds[k][1]} ({shape}) [{smi}]')
 
+    phase('12. schur_qr_baed and schur_qr_packed against their plain '
+          'versions')
+    balt = {}
+    batched_alt_checks(torch, ek, dev, balt)
+
+    phase('13. the order-6 and order-7 sweeps through schur_qr_baed and '
+          'schur_qr_packed')
+    batched_alt_path(torch, tp, ek, dev, eps32, balt)
+    launches.update(balt['launches'])
+    check(f32_precision_pinned(), 'IEEE f32 still pinned after the batched '
+          'stages')
+
+    phase('14. times of the two batched stages (CUDA events, median of 3)')
+    print(f'card: {smi}')
+    batched_alt_times(torch, tp, ek, smi, eps32, balt, times, bounds)
+    for k in BATCHED_ALT:
+        tk, tpl, shape = times[k]
+        print(f'  {k}: kernel {tk:.3f} ms, plain {tpl:.3f} ms, bound '
+              f'{bounds[k][0]:.4f} ms by {bounds[k][1]} ({shape}) [{smi}]')
+
     if FAILURES:
         print(f'\n{len(FAILURES)} check(s) failed:', *FAILURES, sep='\n  ')
         return 1
     errs = {'hessenberg': rec_main['hess'], 'schur_qr': rec_main['qr'],
             'tri_vectors': rec_main['vec_sep'], 'schur_ms': o20['err_ms'],
             'tri_vectors_blocked': o20['err_vec'], 'schur_qr_v2': alt['err_v2'],
-            'schur_qr_ms': alt['err_ms']}
+            'schur_qr_ms': alt['err_ms'], 'schur_qr_baed': balt['err_baed'],
+            'schur_qr_packed': balt['err_packed']}
     kernels = [{'name': k, 'route': 'cuda', 'source': SOURCES[k],
                 'replaces': REPLACES[k], 'launches': launches[k],
                 'max_abs_err': errs[k], 'ms': times[k][0],
@@ -1393,6 +1886,12 @@ def main():
         work=f'the first {V2_BUDGET} sweeps at B = 8, n = 338',
         full_ms=alt['v2_full'][0], full_bound_ms=alt['v2_full'][1][0],
         full_bound_by=alt['v2_full'][1][1])
+    for k, budget in (('schur_qr_baed', BAED_BUDGET),
+                      ('schur_qr_packed', PACKED_BUDGET)):
+        t_full, b_full = balt['full'][k]
+        kernels[list(REPLACES).index(k)].update(
+            work=f'the first {budget} sweeps at B = 8, n = 338',
+            full_ms=t_full, full_bound_ms=b_full[0], full_bound_by=b_full[1])
     print(smi)
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {

@@ -320,3 +320,93 @@ def test_schur_ms_without_aed_matches_plain(dev):
     res = torch.linalg.matrix_norm(Z @ T @ Z.mH - A) / torch.linalg.matrix_norm(A)
     assert float(res) <= 1e-5
     assert stp[1] / 2 <= st[1] <= 2 * stp[1]
+
+
+def _batch_checks(A, T, Z):
+    assert bool((torch.tril(T, -1) == 0).all())
+    res = torch.linalg.matrix_norm(Z @ T @ Z.mH - A) / torch.linalg.matrix_norm(A)
+    assert float(res.max()) <= 1e-5
+    eye = torch.eye(A.shape[-1], device=A.device)
+    assert float((Z.mH @ Z - eye).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize('n,m,kw', [(48, 4, 32), (80, 8, 64)])
+def test_schur_qr_baed_kernel_matches_plain(dev, n, m, kw):
+    # n = 48 with kw = 32: the active block is shorter than the AED window
+    # from the second sweep on; n = 80 with kw = 64: the default window.  One
+    # launch for the batch, each matrix with its own sweep count
+    from torcwa_tpu_torch.ops import schur_qr_baed as sb
+    A = _rand(dev, 8, n)
+    H, Q = ek.hessenberg_plain(A)
+    T, Z, st = _launch('schur_qr_baed', sb.schur_qr_baed, H, Q, m=m, kw=kw,
+                       return_stats=True)
+    Tp, _, stp = sb.schur_qr_baed_plain(H, Q, m=m, kw=kw, return_stats=True)
+    assert bool((st[0] == 0).all()) and bool((stp[0] == 0).all())
+    for b in range(B):
+        assert _sets_agree(torch.diagonal(T[b]), torch.diagonal(Tp[b]))
+    _batch_checks(A, T, Z)
+    assert int(stp[1].max()) / 2 <= int(st[1].max()) <= 2 * int(stp[1].max())
+    assert bool((st[3] > n // 2).all())         # AED deflates most rows
+    T1, _, st1 = _launch('schur_qr_baed', sb.schur_qr_baed, H, Q, m=m, kw=kw,
+                         max_iter_factor=-100, return_stats=True)
+    assert bool((st1[0] > 0).all()) and bool((st1[1] == 0).all())
+    assert bool(torch.isnan(torch.diagonal(T1, dim1=-2, dim2=-1)).all())
+    with pytest.raises(ValueError):
+        sb.schur_qr_baed(H, Q, m=m, kw=64 if n < 74 else 72)
+    with pytest.raises(TypeError):
+        sb.schur_qr_baed(H.to(torch.complex128), Q.to(torch.complex128), m=m,
+                         kw=kw)
+    with pytest.raises(ValueError):
+        sb.schur_qr_baed(H.mT, Q, m=m, kw=kw)           # not contiguous
+
+
+@pytest.mark.parametrize('n', [40, 33])
+def test_schur_qr_packed_kernel_matches_plain(dev, n):
+    # n = 40 and 33: the padding of a packed half is 24 and 31 floats wide;
+    # one sweep is forward-stable on a random batch, so kernel and plain agree
+    # element-wise there (1e-4 ||A||_2), and in full as eigenvalue sets
+    from torcwa_tpu_torch.ops import schur_qr_packed as sp
+    A = _rand(dev, 9, n)
+    H, Q = ek.hessenberg_plain(A)
+    T, Z, st = _launch('schur_qr_packed', sp.schur_qr_packed, H, Q,
+                       return_stats=True)
+    Tp, _, stp = sp.schur_qr_packed_plain(H, Q, return_stats=True)
+    assert bool((st[0] == 0).all()) and bool((stp[0] == 0).all())
+    for b in range(B):
+        assert _sets_agree(torch.diagonal(T[b]), torch.diagonal(Tp[b]))
+    _batch_checks(A, T, Z)
+    assert int(stp[1].max()) / 2 <= int(st[1].max()) <= 2 * int(stp[1].max())
+    # (after one sweep the diagonal is NaN by contract: the strict upper part)
+    H1, Z1 = sp.schur_qr_packed(H, Q, max_iters=1)
+    H1p, Z1p = sp.schur_qr_packed_plain(H, Q, max_iters=1)
+    a2 = float(torch.linalg.matrix_norm(A, ord=2).min())
+    dH = torch.triu(H1, 1) - torch.triu(H1p, 1)
+    assert float(dH.abs().max()) <= 1e-4 * a2
+    assert float((Z1 - Z1p).abs().max()) <= 1e-4
+    T1, _, st1 = _launch('schur_qr_packed', sp.schur_qr_packed, H, Q,
+                         max_iter_factor=1, return_stats=True)
+    assert bool((st1[0] > 0).all()) and bool((st1[1] == n).all())
+    assert bool(torch.isnan(torch.diagonal(T1, dim1=-2, dim2=-1)).all())
+    with pytest.raises(TypeError):
+        sp.schur_qr_packed(H.to(torch.complex128), Q.to(torch.complex128))
+    with pytest.raises(ValueError):
+        sp.schur_qr_packed(H.mT, Q)                     # not contiguous
+
+
+def test_eig_small_through_the_batched_stages_on_the_card(dev):
+    # the composed eig, Hessenberg -> stage -> vectors -> refinement, through
+    # each of the two stages at n = 80: one launch of the stage, none of
+    # schur_qr; A V = V diag(w) to 1e-4 max|A|
+    from functools import partial
+    from torcwa_tpu_torch.ops import eig_qr as eq
+    from torcwa_tpu_torch.ops import schur_qr_baed as sb, schur_qr_packed as sp
+    A = _rand(dev, 10, 80)
+    for name, stage in (('schur_qr_baed', partial(sb.schur_qr_baed, m=8)),
+                        ('schur_qr_packed', sp.schur_qr_packed)):
+        ek.reset_launch_counts()
+        w, V = eq.eig_small(A, stage)
+        torch.cuda.synchronize()
+        assert ek.LAUNCHES[name] == 1 and ek.LAUNCHES['schur_qr'] == 0
+        assert bool(torch.isfinite(torch.view_as_real(w)).all())
+        res = (A @ V - V * w[..., None, :]).abs().amax((-2, -1))
+        assert bool((res <= 1e-4 * A.abs().amax((-2, -1))).all())

@@ -64,6 +64,7 @@
 // AED is the serial mini-Schur in one block; the slab products are the
 // only throughput part (~2 n wb^2 complex multiply-adds per window).
 
+#include "ms_aed.cuh"
 #include "ms_shifts.cuh"
 
 namespace {
@@ -74,7 +75,7 @@ constexpr int kChaseThreads = 1024;
 constexpr size_t kMaxChaseSmem = 225 * 1024;  // dynamic, beside ~2 KB static
 constexpr int kGemmThreads = 256;
 constexpr int kMaxM = 64;     // shifts per sweep
-constexpr int kMaxKw = 64;    // AED window
+constexpr int kMaxKw = kAedMaxKw;  // AED window
 constexpr int kMaxW = 256;    // order of a slab transform (chase window)
 constexpr int kStrip = 32;    // columns (rows) of a slab per block
 constexpr int kKT = 8;        // depth of a staged tile of the transform
@@ -113,23 +114,14 @@ ms_band_scan(const float2* __restrict__ H, int n, int hi_top, float defl_mult,
 // aggressive early deflation
 // ---------------------------------------------------------------------------
 
+// The AED body is aed_window of ms_aed.cuh (schur_qr_baed.cu runs it too,
+// inside its own sweep loop); this launch adds what the host loop needs: the
+// kwe x kwe transform Lp for the slab products and the info record.
 __global__ void __launch_bounds__(kAedThreads)
 ms_aed(float2* __restrict__ H, int n, int* __restrict__ info, int exc, int m,
        int kw, float defl_mult, float2* __restrict__ Lp,
        float2* __restrict__ shifts) {
   extern __shared__ float2 sm[];
-  const int ld = kw, ld1 = kw + 1;
-  float2* W = sm;                     // window, then its Schur factor T
-  float2* Qm = W + kw * kw;           // T = Qm W Qm^H
-  float2* Ap = Qm + kw * kw;          // [[0, 0], [spike, T]], (kw+1)^2
-  float2* L = Ap + ld1 * ld1;         // reflectors . diag(1, Qm)
-  float2* spike = L + ld1 * ld1;      // kw
-  float2* v = spike + kw;             // kw + 1
-  __shared__ float red[33];
-  __shared__ int s_mhi, s_mlo, s_ku;
-  __shared__ float2 s_x, s_y;
-  __shared__ unsigned char defl[kMaxKw];
-
   const int tid = threadIdx.x;
   const int lo = info[I_LO], hi = info[I_HI];
   if (hi <= 0) {
@@ -139,205 +131,15 @@ ms_aed(float2* __restrict__ H, int n, int* __restrict__ info, int exc, int m,
     }
     return;
   }
-  const int s = max(hi - kw + 1, lo + 1);
-  const int kwe = hi - s + 1;
-  const int K1 = kwe + 1;
-
-  float wmax = 0.f;
-  for (int e = tid; e < kwe * kwe; e += kAedThreads) {
-    const int i = e / kwe, j = e % kwe;
-    const float2 h = H[(size_t)(s + i) * n + s + j];
-    W[i * ld + j] = h;
-    Qm[i * ld + j] = c_make(i == j ? 1.f : 0.f, 0.f);
-    wmax = fmaxf(wmax, c_abs2(h));
-  }
-  const float smax = fmaxf(sqrtf(block_reduce<true>(wmax, red)),
-                           TORCWA_SMLNUM_F32);
-  const float2 beta = H[(size_t)s * n + s - 1];
-
-  // ---- single-shift Schur form of the window, Qm accumulated ----
-  const int max_it = 3 * kw + 40;
-  int it = 0, mhi = kwe - 1;
-  while (true) {
-    if (tid == 0) {
-      auto alive = [&](int c) {
-        return sub_alive(W[c * ld + c], W[(c + 1) * ld + c + 1],
-                         W[(c + 1) * ld + c], 1.f);
-      };
-      int h = mhi;
-      while (h > 0 && !alive(h - 1)) --h;
-      int l = h;
-      while (l > 0 && alive(l - 1)) --l;
-      s_mhi = h;
-      s_mlo = l;
-      if (h > 0) {
-        const float2 a = W[(h - 1) * ld + h - 1], b = W[(h - 1) * ld + h];
-        const float2 c = W[h * ld + h - 1], d = W[h * ld + h];
-        float2 sh = wilkinson(a, b, c, d, true);
-        if (it % 13 == 12) sh = c_make(d.x + 0.75f * sqrtf(c_abs2(c)), d.y);
-        s_x = c_sub(W[l * ld + l], sh);
-        s_y = W[(l + 1) * ld + l];
-      }
-    }
-    __syncthreads();
-    mhi = s_mhi;
-    const int mlo = s_mlo;
-    if (mhi <= 0 || it >= max_it) break;
-    for (int k = mlo; k < mhi; ++k) {
-      const Givens g = givens(s_x, s_y);
-      const float c = g.c;
-      const float2 sg = g.s;
-      // rows k, k+1 of W (columns >= k-1) and of Qm
-      for (int idx = tid; idx < 2 * kwe; idx += kAedThreads) {
-        float2* X = idx < kwe ? W : Qm;
-        const int j = idx < kwe ? idx : idx - kwe;
-        if (idx < kwe && j < k - 1) continue;
-        const float2 hk = X[k * ld + j], h1 = X[(k + 1) * ld + j];
-        X[k * ld + j] = c_add(c_scale(c, hk), c_mul(sg, h1));
-        X[(k + 1) * ld + j] = c_sub(c_scale(c, h1), c_cmul(sg, hk));
-        if (idx < kwe && j == k - 1 && k > mlo)
-          X[(k + 1) * ld + j] = c_make(0.f, 0.f);
-      }
-      __syncthreads();
-      // columns k, k+1 of W, rows <= min(k+2, mhi)
-      const int imax = min(k + 2, mhi);
-      for (int i = tid; i <= imax; i += kAedThreads) {
-        const float2 l = W[i * ld + k], r = W[i * ld + k + 1];
-        const float2 nl = c_add(c_scale(c, l), c_cmul(sg, r));
-        W[i * ld + k] = nl;
-        W[i * ld + k + 1] = c_sub(c_scale(c, r), c_mul(sg, l));
-        if (i == k + 1) {
-          s_x = nl;
-          if (k + 2 > mhi) s_y = c_make(0.f, 0.f);
-        }
-        if (i == k + 2) s_y = nl;
-      }
-      __syncthreads();
-    }
-    ++it;
-  }
-
-  // ---- spike, deflatable lanes, undeflated count ku ----
-  for (int i = tid; i < kwe; i += kAedThreads) {
-    const float2 sp = c_mul(beta, Qm[i * ld]);
-    spike[i] = sp;
-    const float td = sqrtf(c_abs2(W[i * ld + i]));
-    defl[i] = (sqrtf(c_abs2(sp)) <= defl_mult * TORCWA_EPS_F32 *
-                                        fmaxf(td, smax)) && (i >= mhi);
-  }
-  __syncthreads();
-  if (tid == 0) {
-    int ku = kwe;
-    while (ku > 0 && defl[ku - 1]) --ku;
-    s_ku = ku;
-    // shifts
-    const int kum1 = max(ku - 1, 0);
-    if (exc) {
-      for (int i = 0; i < m; ++i) {
-        const int pos = min(max(ku - m + i, 0), kum1);
-        const float2 d = W[pos * ld + pos];
-        shifts[i] = c_make(d.x + 0.75f * sqrtf(c_abs2(spike[pos])), d.y);
-      }
-    } else {
-      // the m lanes closest to the new corner, undeflated lanes first,
-      // ties and the lanes >= ku in index order
-      const float2 cn = W[kum1 * ld + kum1];
-      unsigned long long taken = 0ull;
-      float2 last = cn;
-      for (int i = 0; i < m; ++i) {
-        int pick = -1;
-        float best = 0.f;
-        for (int q = 0; q < ku; ++q) {
-          if ((taken >> q) & 1ull) continue;
-          const float dq = c_abs2(c_sub(W[q * ld + q], cn));
-          if (pick < 0 || dq < best) { pick = q; best = dq; }
-        }
-        if (pick < 0)
-          for (int q = ku; q < kwe; ++q)
-            if (!((taken >> q) & 1ull)) { pick = q; break; }
-        if (pick >= 0) {
-          taken |= 1ull << pick;
-          last = W[pick * ld + pick];
-        }
-        shifts[i] = last;
-      }
-    }
-  }
-  __syncthreads();
-  const int ku = s_ku;
-
-  // ---- bordered matrix and L = diag(1, Qm) ----
-  for (int e = tid; e < K1 * K1; e += kAedThreads) {
-    const int r = e / K1, c = e % K1;
-    float2 a = c_make(0.f, 0.f), l = c_make(r == c ? 1.f : 0.f, 0.f);
-    if (r > 0 && c > 0) {
-      a = W[(r - 1) * ld + c - 1];
-      l = Qm[(r - 1) * ld + c - 1];
-    } else if (r > 0) {
-      a = defl[r - 1] ? c_make(0.f, 0.f) : spike[r - 1];
-      l = c_make(0.f, 0.f);
-    }
-    Ap[r * ld1 + c] = a;
-    L[r * ld1 + c] = l;
-  }
-  __syncthreads();
-
-  // ---- Householder reduction of rows/columns 1..ku back to Hessenberg ----
-  for (int j = 0; j + 2 <= ku; ++j) {
-    float sigma = 0.f;
-    for (int r = j + 2; r <= ku; ++r) sigma += c_abs2(Ap[r * ld1 + j]);
-    const float2 x1 = Ap[(j + 1) * ld1 + j];
-    const float xn1 = sqrtf(c_abs2(x1));
-    const float2 ph = xn1 > 0.f ? c_scale(1.f / xn1, x1) : c_make(1.f, 0.f);
-    const float normx = sqrtf(sigma + xn1 * xn1);
-    const float vn2 = 2.f * (sigma + xn1 * xn1 + normx * xn1);
-    const float tau = sigma > 0.f ? 2.f / fmaxf(vn2, 1e-30f) : 0.f;
-    for (int r = j + 1 + tid; r <= ku; r += kAedThreads)
-      v[r] = r == j + 1 ? c_add(x1, c_scale(normx, ph)) : Ap[r * ld1 + j];
-    __syncthreads();
-    if (tau != 0.f) {
-      // X <- X - tau v (v^H X) on Ap and L
-      for (int idx = tid; idx < 2 * K1; idx += kAedThreads) {
-        float2* X = idx < K1 ? Ap : L;
-        const int c = idx < K1 ? idx : idx - K1;
-        float2 w = c_make(0.f, 0.f);
-        for (int r = j + 1; r <= ku; ++r)
-          w = c_add(w, c_cmul(v[r], X[r * ld1 + c]));
-        w = c_scale(tau, w);
-        for (int r = j + 1; r <= ku; ++r)
-          X[r * ld1 + c] = c_sub(X[r * ld1 + c], c_mul(v[r], w));
-      }
-      __syncthreads();
-      // Ap <- Ap - tau (Ap v) v^H
-      for (int r = tid; r < K1; r += kAedThreads) {
-        float2 u = c_make(0.f, 0.f);
-        for (int c = j + 1; c <= ku; ++c)
-          u = c_add(u, c_mul(Ap[r * ld1 + c], v[c]));
-        u = c_scale(tau, u);
-        for (int c = j + 1; c <= ku; ++c)
-          Ap[r * ld1 + c] = c_sub(Ap[r * ld1 + c], c_mulc(u, v[c]));
-      }
-    }
-    __syncthreads();
-  }
-
-  // ---- results ----
-  const int hi_new = s + ku - 1;
-  if (hi_new < hi) {
-    // diagonal block and spike column, the known zeros exact: nothing
-    // below the subdiagonal, no subdiagonal in the deflated part
-    for (int e = tid; e < kwe * K1; e += kAedThreads) {
-      const int r = e / K1 + 1, c = e % K1;
-      float2 a = Ap[r * ld1 + c];
-      if (c + 2 <= r || (c + 1 == r && r >= ku + 1)) a = c_make(0.f, 0.f);
-      H[(size_t)(s - 1 + r) * n + s - 1 + c] = a;
-    }
-  }
+  const AedResult r = aed_window<kAedThreads, 0>(
+      H, n, lo, hi, exc != 0, m, kw, defl_mult, false, sm, shifts);
+  const float2* L = sm + aed_L_offset(kw);
+  const int kwe = r.kwe, ld1 = kw + 1;
   for (int e = tid; e < kwe * kwe; e += kAedThreads)
     Lp[(e / kwe) * kwe + e % kwe] = L[(e / kwe + 1) * ld1 + e % kwe + 1];
   if (tid == 0) {
-    info[I_S] = s; info[I_KWE] = kwe; info[I_HINEW] = hi_new;
-    info[I_KU] = ku; info[I_HIM] = mhi; info[I_MINI_IT] = it;
+    info[I_S] = r.s; info[I_KWE] = kwe; info[I_HINEW] = r.s + r.ku - 1;
+    info[I_KU] = r.ku; info[I_HIM] = r.mhi; info[I_MINI_IT] = r.it;
   }
 }
 
@@ -596,8 +398,7 @@ extern "C" int torcwa_ms_aed_c64(void* H, int n, void* info, int exc, int m,
                                  void* shifts, void* stream) {
   if (kw < 1 || kw > kMaxKw || m < 1 || m > kMaxM)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = (2 * (size_t)kw * kw + 2 * (size_t)(kw + 1) * (kw + 1) +
-                       2 * (size_t)kw + 1) * sizeof(float2);
+  const size_t smem = aed_smem_elems(kw) * sizeof(float2);
   cudaError_t err = set_smem(ms_aed, smem);
   if (err != cudaSuccess) return (int)err;
   ms_aed<<<1, kAedThreads, smem, (cudaStream_t)stream>>>(

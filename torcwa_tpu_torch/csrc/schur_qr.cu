@@ -43,6 +43,8 @@
 // that kernel are the TPU compiler's constraints, not the function: here the
 // rules are a template parameter of the kernel below and everything else is
 // shared, so the two entry points cannot drift apart in what they share.
+// The rule sets and the start of a sweep (flags, runs, shifts) live in
+// single_shift.cuh, which schur_qr_packed.cu uses too.
 //
 // What bounds it on an H100: latency.  Every rotation is O(n) work behind
 // two block barriers and an L2 round trip, and a sweep starts with a
@@ -51,39 +53,19 @@
 // that beyond keeping the per-rotation work to the non-zero band; multi-
 // shift chases and a cluster per matrix are later work.
 
-#include "common.cuh"
+#include "single_shift.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kExcEvery = 13;
-// The TPU kernels' rules; ops/eig_kernels.py holds the same values for the
-// plain versions.  _kernel_acc (eig_qr_pallas.py: _NRUNS, _DEFL_MULT,
-// _CPLX_STALL):
-struct AccRules {
-  static constexpr int kRuns = 4;
-  static constexpr float kDeflMult = 4.f;
-  static constexpr int kCplxStall = 30;
-};
-// _kernel, the v2 QR: one window, multiplier 1, no stall gate
-struct V2Rules {
-  static constexpr int kRuns = 1;
-  static constexpr float kDeflMult = 1.f;
-  static constexpr int kCplxStall = 0;
-};
 
 template <typename R>
 __global__ void __launch_bounds__(kThreads)
 schur_qr_kernel(const float2* __restrict__ Hin, const float2* __restrict__ Zin,
                 float2* __restrict__ H, float2* __restrict__ Z,
                 int* __restrict__ stats, int n, int max_iters) {
-  constexpr int kRuns = R::kRuns;
-  constexpr float kDeflMult = R::kDeflMult;
-  constexpr int kCplxStall = R::kCplxStall;
   extern __shared__ unsigned char alive[];  // alive[c]: subdiagonal c+1,c
-  __shared__ int s_lo[kRuns], s_hi[kRuns];
-  __shared__ float2 s_shift[kRuns];
-  __shared__ int s_nr, s_hi0;
+  __shared__ SweepPlan<R> plan;
   __shared__ float2 s_x, s_y;
 
   const size_t off = (size_t)blockIdx.x * n * n;
@@ -102,57 +84,17 @@ schur_qr_kernel(const float2* __restrict__ Hin, const float2* __restrict__ Zin,
   int hi = n - 1, it = 0;
   int stall = 0, rot = 0;  // meaningful in thread 0 only
   while (hi > 0 && it < max_iters) {
-    // ---- deflation flags on the live prefix ----
-    for (int c = tid; c < hi; c += kThreads) {
-      const float d0 = sqrtf(c_abs2(H[(size_t)c * n + c]));
-      const float d1 = sqrtf(c_abs2(H[(size_t)(c + 1) * n + c + 1]));
-      const float th =
-          fmaxf(kDeflMult * TORCWA_EPS_F32 * (d0 + d1), TORCWA_SMLNUM_F32);
-      alive[c] = c_abs2(H[(size_t)(c + 1) * n + c]) > th * th;
-    }
-    __syncthreads();
-
-    // ---- windows and shifts (one thread walks the flags) ----
-    if (tid == 0) {
-      int h = hi;
-      while (h > 0 && !alive[h - 1]) --h;
-      stall = h < hi ? 0 : stall + 1;
-      s_hi0 = h;
-      int nr = 0, top = h;
-      for (int r = 0; r < kRuns; ++r) {
-        int hr = top;
-        if (r > 0) {
-          hr = top - 1;
-          while (hr > 0 && !alive[hr - 1]) --hr;
-        }
-        if (hr <= 0) break;
-        int lo = hr;
-        while (lo > 0 && alive[lo - 1]) --lo;
-        const float2 a = H[(size_t)(hr - 1) * n + hr - 1];
-        const float2 b = H[(size_t)(hr - 1) * n + hr];
-        const float2 c = H[(size_t)hr * n + hr - 1];
-        const float2 d = H[(size_t)hr * n + hr];
-        float2 sh = wilkinson(a, b, c, d, stall >= kCplxStall);
-        if (r == 0 && (it % kExcEvery) == kExcEvery - 1)
-          sh = c_make(d.x + 0.75f * sqrtf(c_abs2(c)), d.y);
-        s_lo[nr] = lo;
-        s_hi[nr] = hr;
-        s_shift[nr] = sh;
-        rot += hr - lo;
-        ++nr;
-        top = lo;
-      }
-      s_nr = nr;
-    }
-    __syncthreads();
-    hi = s_hi0;
-    const int nr = s_nr;
+    // ---- deflation flags, windows and shifts (single_shift.cuh) ----
+    plan_sweep<R>([&](int i, int j) { return H[(size_t)i * n + j]; }, hi, it,
+                  stall, rot, alive, plan);
+    hi = plan.hi0;
+    const int nr = plan.nr;
 
     // ---- one bulge per run, top-most run first ----
     for (int r = nr - 1; r >= 0; --r) {
-      const int lo = s_lo[r], hr = s_hi[r];
+      const int lo = plan.lo[r], hr = plan.hi[r];
       if (tid == 0) {
-        s_x = c_sub(H[(size_t)lo * n + lo], s_shift[r]);
+        s_x = c_sub(H[(size_t)lo * n + lo], plan.shift[r]);
         s_y = H[(size_t)(lo + 1) * n + lo];
       }
       __syncthreads();

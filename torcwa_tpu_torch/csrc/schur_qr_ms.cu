@@ -31,7 +31,8 @@
 // resident in the L2 cache up to n ~ 1500); the m x m shift block, the
 // shifts and the bulge carries live in shared memory.  The band scan is two
 // block-wide max-reductions; warp 0 computes the shifts while the others
-// wait; a chase step is three phases behind block barriers: (1) threads
+// wait; the chase is chase_whole_block of ms_chase.cuh, which schur_qr_baed.cu
+// runs too; a chase step is three phases behind block barriers: (1) threads
 // 0..m-1 form the step's rotations from the carries, (2) every row rotation,
 // (3) every column rotation of H.  A step's m rotations touch disjoint row
 // pairs and disjoint column pairs, and a row rotation covers columns
@@ -52,7 +53,7 @@
 // transposed Z and the banded row range; a cluster of blocks per matrix, or
 // aggressive early deflation in the launch, is later work.
 
-#include "ms_shifts.cuh"
+#include "ms_chase.cuh"
 
 namespace {
 
@@ -65,10 +66,9 @@ schur_qr_ms_kernel(float2* __restrict__ H, float2* __restrict__ Zt,
                    int max_sweeps) {
   extern __shared__ float2 blockB[];  // the m x m shift block
   __shared__ int red[33];
-  __shared__ float s_c[kShiftMaxM], s_dist[kShiftMaxM];
-  __shared__ float2 s_s[kShiftMaxM], s_x[kShiftMaxM], s_y[kShiftMaxM];
+  __shared__ float s_dist[kShiftMaxM];
   __shared__ float2 s_shift[kShiftMaxM];
-  __shared__ unsigned char s_act[kShiftMaxM];
+  __shared__ ChaseCarry cc;
   __shared__ unsigned long long s_rot;
 
   const int tid = threadIdx.x;
@@ -96,78 +96,8 @@ schur_qr_ms_kernel(float2* __restrict__ H, float2* __restrict__ Zt,
       // ---- shifts (warp 0) ----
       if (tid < 32)
         trailing_shifts_warp(H, n, lo, hi, m, exc, blockB, s_dist, s_shift);
-      if (tid < m) {
-        s_x[tid] = c_make(0.f, 0.f);
-        s_y[tid] = c_make(0.f, 0.f);
-      }
-      __syncthreads();
-
-      // ---- chase: nb live bulges, steps lo .. hi - 1 + 2 (nb - 1) ----
-      const int nb = min(m, (hi - lo - 1) / 2 + 1);
-      const int t_final = hi - 1 + 2 * (nb - 1);
-      for (int t = lo; t <= t_final; ++t) {
-        if (tid < m) {
-          const int i = tid, k = t - 2 * i;
-          const bool act = i < nb && k >= lo && k < hi;
-          s_act[i] = act;
-          if (act) {
-            if (k == lo) {
-              s_x[i] = c_sub(H[(size_t)lo * n + lo], s_shift[i]);
-              s_y[i] = H[(size_t)(lo + 1) * n + lo];
-            }
-            const Givens g = givens(s_x[i], s_y[i]);
-            s_c[i] = g.c;
-            s_s[i] = g.s;
-            atomicAdd(&s_rot, 1ull);
-          }
-        }
-        __syncthreads();
-        // rows k, k+1 of H (columns >= max(k-1, lo)) and of Z^T (all)
-        const int nlive = min(nb, (t - lo) / 2 + 1);  // bulges entered so far
-        for (int idx = tid; idx < nlive * 2 * n; idx += kThreads) {
-          const int i = idx / (2 * n), jj = idx - i * 2 * n;
-          if (!s_act[i]) continue;
-          const int k = t - 2 * i;
-          const float c = s_c[i];
-          const float2 sg = s_s[i];
-          if (jj < n) {
-            if (jj < max(k - 1, lo)) continue;
-            float2* pk = H + (size_t)k * n + jj;
-            const float2 hk = pk[0], h1 = pk[n];
-            pk[0] = c_add(c_scale(c, hk), c_mul(sg, h1));
-            pk[n] = (jj == k - 1 && k > lo)
-                        ? c_make(0.f, 0.f)
-                        : c_sub(c_scale(c, h1), c_cmul(sg, hk));
-          } else {
-            float2* pk = Zt + (size_t)k * n + (jj - n);
-            const float2 l = pk[0], r = pk[n];
-            pk[0] = c_add(c_scale(c, l), c_cmul(sg, r));
-            pk[n] = c_sub(c_scale(c, r), c_mul(sg, l));
-          }
-        }
-        __syncthreads();
-        // columns k, k+1 of H, rows <= min(k + 2, hi)
-        const int nrow = min(t + 3, hi + 1);  // the leading bulge reaches
-        for (int idx = tid; idx < nlive * nrow; idx += kThreads) {
-          const int i = idx / nrow, r = idx - i * nrow;
-          if (!s_act[i]) continue;
-          const int k = t - 2 * i;
-          if (r > min(k + 2, hi)) continue;
-          const float c = s_c[i];
-          const float2 sg = s_s[i];
-          float2* p = H + (size_t)r * n + k;
-          const float2 l = p[0], rr = p[1];
-          const float2 nl = c_add(c_scale(c, l), c_cmul(sg, rr));
-          p[0] = nl;
-          p[1] = c_sub(c_scale(c, rr), c_mul(sg, l));
-          if (r == k + 1) {
-            s_x[i] = nl;
-            if (k + 2 > hi) s_y[i] = c_make(0.f, 0.f);
-          }
-          if (r == k + 2) s_y[i] = nl;
-        }
-        __syncthreads();
-      }
+      // ---- chase over the whole active block (ms_chase.cuh) ----
+      chase_whole_block<kThreads>(H, Zt, n, lo, hi, m, s_shift, cc, &s_rot);
     }
     stall = (hi < hi_prev || exc) ? 0 : stall + 1;
     ++it;

@@ -1,0 +1,98 @@
+// What the batched single-shift QR kernels share: the rule sets of the three
+// TPU kernels they replace, and the start of a sweep (deflation flags, the
+// alive runs, each run's shift), so that the rule sets cannot drift apart in
+// what they have in common.  The kernels differ in how H and Z are stored
+// (schur_qr.cu: interleaved complex64, Z plain; schur_qr_packed.cu: planar
+// re | im rows, Z transposed), so the matrix is read through an accessor
+// `at(i, j)` that returns entry (i, j) of H as a float2.
+#pragma once
+
+#include "common.cuh"
+
+constexpr int kExcEvery = 13;
+
+// The TPU kernels' rules; ops/eig_kernels.py and ops/schur_qr_packed.py hold
+// the same values for the plain versions.  eig_qr_pallas._kernel_acc (_NRUNS,
+// _DEFL_MULT, _CPLX_STALL):
+struct AccRules {
+  static constexpr int kRuns = 4;
+  static constexpr float kDeflMult = 4.f;
+  static constexpr int kCplxStall = 30;
+};
+// eig_qr_pallas._kernel, the v2 QR: one window, multiplier 1, no stall gate
+struct V2Rules {
+  static constexpr int kRuns = 1;
+  static constexpr float kDeflMult = 1.f;
+  static constexpr int kCplxStall = 0;
+};
+// attic/eig_qr_pallas_packed._kernel_packed: _kernel_acc's windows and stall
+// gate with the deflation threshold eps (|d| + |d'|) (multiplier 1)
+struct PackedRules {
+  static constexpr int kRuns = 4;
+  static constexpr float kDeflMult = 1.f;
+  static constexpr int kCplxStall = 30;
+};
+
+// The runs of one sweep, bottom-most first, in shared memory.
+template <typename R>
+struct SweepPlan {
+  int lo[R::kRuns], hi[R::kRuns];
+  float2 shift[R::kRuns];
+  int nr;   // runs of this sweep
+  int hi0;  // the window bottom after this sweep's deflation scan
+};
+
+// Start of sweep `it` on the window [0, hi]: all threads compute the
+// deflation flags alive[c] (subdiagonal c+1, c) on the live prefix, thread 0
+// walks them for the new window bottom, up to R::kRuns alive runs and their
+// Wilkinson shifts (the bottom run takes the exceptional shift d + 0.75 |sub|
+// every kExcEvery-th sweep; an exactly real discriminant takes the complex
+// branch only after R::kCplxStall sweeps without progress).  `stall` and
+// `rot` (rotations this lane will have applied) are thread 0's.  Contains
+// barriers: call from all threads; the plan is complete on return.
+template <typename R, typename At>
+__device__ __forceinline__ void plan_sweep(At at, int hi, int it, int& stall,
+                                           int& rot, unsigned char* alive,
+                                           SweepPlan<R>& plan) {
+  const int tid = threadIdx.x;
+  for (int c = tid; c < hi; c += blockDim.x) {
+    const float d0 = sqrtf(c_abs2(at(c, c)));
+    const float d1 = sqrtf(c_abs2(at(c + 1, c + 1)));
+    const float th =
+        fmaxf(R::kDeflMult * TORCWA_EPS_F32 * (d0 + d1), TORCWA_SMLNUM_F32);
+    alive[c] = c_abs2(at(c + 1, c)) > th * th;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    int h = hi;
+    while (h > 0 && !alive[h - 1]) --h;
+    stall = h < hi ? 0 : stall + 1;
+    plan.hi0 = h;
+    int nr = 0, top = h;
+    for (int r = 0; r < R::kRuns; ++r) {
+      int hr = top;
+      if (r > 0) {
+        hr = top - 1;
+        while (hr > 0 && !alive[hr - 1]) --hr;
+      }
+      if (hr <= 0) break;
+      int lo = hr;
+      while (lo > 0 && alive[lo - 1]) --lo;
+      const float2 a = at(hr - 1, hr - 1);
+      const float2 b = at(hr - 1, hr);
+      const float2 c = at(hr, hr - 1);
+      const float2 d = at(hr, hr);
+      float2 sh = wilkinson(a, b, c, d, stall >= R::kCplxStall);
+      if (r == 0 && (it % kExcEvery) == kExcEvery - 1)
+        sh = c_make(d.x + 0.75f * sqrtf(c_abs2(c)), d.y);
+      plan.lo[nr] = lo;
+      plan.hi[nr] = hr;
+      plan.shift[nr] = sh;
+      rot += hr - lo;
+      ++nr;
+      top = lo;
+    }
+    plan.nr = nr;
+  }
+  __syncthreads();
+}

@@ -3,7 +3,9 @@ the launch counts of every kernel of the port.
 
 Counterpart of the batched kernels of ``torcwa_tpu/ops/eig_qr_pallas.py``
 (the large-n route is in ``hess_blocked.py``, ``schur_ms.py`` and
-``vec_blocked.py``, the one-launch multishift QR in ``schur_qr_ms.py``).
+``vec_blocked.py``, the one-launch multishift QR in ``schur_qr_ms.py``, the
+batched AED multishift QR in ``schur_qr_baed.py``, the packed-layout
+single-shift QR in ``schur_qr_packed.py``).
 :func:`schur_qr_v2` is the stand-alone "v2" single-shift QR
 (``schur_qr_pallas[_batched]``): the function of :func:`schur_qr` under
 other rules, on no route of ``eig_qr``.  Each stage has
@@ -42,12 +44,13 @@ V2_RULES = dict(nruns=1, defl_mult=1., cplx_stall=0)
 
 # 'schur_ms' counts every launch of a function of csrc/schur_ms.cu (band
 # scan, AED or trailing-block shifts, chase, slab products),
-# 'tri_vectors_blocked' one per row block, 'schur_qr_ms' one per matrix;
-# their wrappers live in ops/schur_ms.py, ops/vec_blocked.py and
-# ops/schur_qr_ms.py
+# 'tri_vectors_blocked' one per row block, 'schur_qr_ms' one per matrix,
+# 'schur_qr_baed' and 'schur_qr_packed' one per batch; their wrappers live
+# in ops/schur_ms.py, ops/vec_blocked.py, ops/schur_qr_ms.py,
+# ops/schur_qr_baed.py and ops/schur_qr_packed.py
 LAUNCHES = {'hessenberg': 0, 'schur_qr': 0, 'tri_vectors': 0,
             'schur_ms': 0, 'tri_vectors_blocked': 0, 'schur_qr_v2': 0,
-            'schur_qr_ms': 0}
+            'schur_qr_ms': 0, 'schur_qr_baed': 0, 'schur_qr_packed': 0}
 
 
 def reset_launch_counts():

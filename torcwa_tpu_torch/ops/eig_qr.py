@@ -15,9 +15,12 @@ Counterpart of the routing in ``torcwa_tpu/ops/eig_qr_real.py``
 
 The small route is :func:`eig_small` with the Schur stage passed in:
 ``eig_qr`` passes ``SMALL_SCHUR`` (``schur_qr``), and the stand-alone stages
-``schur_qr_v2`` and ``schur_qr_ms`` (through :func:`lane_by_lane`) run the
-same composition, Hessenberg -> that stage -> triangular vectors -> V = Z Y
--> unit columns -> refinement, without being on a route.
+``schur_qr_v2``, ``schur_qr_ms`` (through :func:`lane_by_lane`),
+``schur_qr_baed`` (batched multishift QR with AED in the launch,
+``schur_qr_baed.py``) and ``schur_qr_packed`` (packed-layout single-shift QR,
+``schur_qr_packed.py``) run the same composition, Hessenberg -> that stage ->
+triangular vectors -> V = Z Y -> unit columns -> refinement, without being on
+a route; a whole solve goes through one of them with ``SMALL_SCHUR`` swapped.
 
 The small route's kernels keep H, Z and Y in device memory and have no
 size ceiling, but run one block per matrix and a single-shift QR whose

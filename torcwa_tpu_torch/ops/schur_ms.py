@@ -35,7 +35,8 @@ from .eig_kernels import (LAUNCHES, _consts, _givens, _raise_on, _stream,
 
 __all__ = ['schur_ms', 'schur_ms_plain', 'run_sweeps', 'window',
            'ms_apply_left', 'ms_apply_right', 'trailing_shifts_plain',
-           'band_scan_plain', 'chase_plain', 'AED_KW', 'NIBBLE', 'EXC_STALL']
+           'band_scan_plain', 'chase_plain', 'aed_plain', 'AED_KW', 'NIBBLE',
+           'EXC_STALL']
 
 AED_KW = 64          # AED window (eig_qr_hbm._AED_KW)
 NIBBLE = 14          # percent of the window (eig_qr_hbm._NIBBLE)
@@ -228,6 +229,84 @@ def trailing_shifts_plain(H, lo, hi, m, exc=False):
     return sh.to(H.device)
 
 
+def aed_plain(H, lo, hi, m, kw, mult, exc, uncut_scale=False):
+    """Aggressive early deflation on the trailing window of the active block
+    [lo, hi] (hi > 0) of H, in place: the plain version of ``aed_window`` in
+    ``csrc/ms_aed.cuh``.  The window of kwe <= kw rows from s = max(hi - kw +
+    1, lo + 1) is worked on the CPU in H's precision: its single-shift Schur
+    form, the spike, the bottom run of converged lanes with |spike_i| <= mult
+    eps max(|T_ii|, max|W|) deflated (max|W| over the kw rows and columns from
+    s when ``uncut_scale``, as the batched kernel's uncut window sees it, else
+    over the cut window), the m shifts, the Householder reduction back to
+    Hessenberg form.  Where it deflates, the window's own block and spike
+    column of H are overwritten with the known zeros exact; the off-window
+    slabs are the caller's.  Returns (s, kwe, hi_new, shifts (m,), P (kwe,
+    kwe)), shifts and P on H's device."""
+    eps, smlnum = _consts(H.dtype)
+    s = max(hi - kw + 1, lo + 1)
+    kwe = hi - s + 1
+    W = H[s:s + kwe, s:s + kwe].cpu()
+    beta = H[s, s - 1].cpu()
+    scale = H[s:s + kw, s:s + kw] if uncut_scale else W
+    smax = max(float(scale.abs().max()), smlnum)
+    T, Qm, hi_m, _ = _mini_schur(W, 3 * kw + 40)
+    spike = beta * Qm[:, 0]
+    td = torch.diagonal(T)
+    lane = torch.arange(kwe)
+    defl = ((spike.abs() <= mult * eps * torch.clamp(td.abs(), min=smax))
+            & (lane >= hi_m))
+    keep = (~defl).nonzero()
+    ku = int(keep[-1]) + 1 if keep.numel() else 0
+    hi_new = s + ku - 1
+    kum1 = max(ku - 1, 0)
+    if exc:
+        pos = torch.clamp(ku - m + torch.arange(m), 0, kum1)
+        sh = torch.complex(td[pos].real + 0.75 * spike[pos].abs(),
+                           td[pos].imag)
+    else:
+        # undeflated lanes by distance to the new corner (ties in index
+        # order), then the deflated lanes in index order
+        dist = (td - td[kum1]).abs() ** 2
+        dist = torch.where(lane < ku, dist,
+                           torch.full_like(dist, float('inf')))
+        order = torch.sort(dist, stable=True).indices[:m]
+        sh = td[order]
+        if kwe < m:
+            sh = torch.cat([sh, sh[-1:].expand(m - kwe)])
+    # bordered matrix [[0, 0], [spike, T]] and L = diag(1, Qm)
+    K1 = kwe + 1
+    Ap = torch.zeros(K1, K1, dtype=H.dtype)
+    Ap[1:, 1:] = T
+    Ap[1:, 0] = torch.where(defl, torch.zeros_like(spike), spike)
+    L = torch.eye(K1, dtype=H.dtype)
+    L[1:, 1:] = Qm
+    tiny = 1e-30 if H.dtype == torch.complex64 else 1e-290
+    for j in range(ku - 1):
+        col = Ap[:, j]
+        x1 = col[j + 1]
+        sigma = float((col[j + 2:ku + 1].abs() ** 2).sum())
+        if not sigma > 0:
+            continue
+        xn1 = float(x1.abs())
+        ph = x1 / xn1 if xn1 > 0 else torch.ones_like(x1)
+        normx = (sigma + xn1 * xn1) ** 0.5
+        v = torch.zeros(K1, dtype=H.dtype)
+        v[j + 2:ku + 1] = col[j + 2:ku + 1]
+        v[j + 1] = x1 + ph * normx
+        tau = 2. / max(2. * (sigma + xn1 * xn1 + normx * xn1), tiny)
+        Ap -= tau * torch.outer(v, v.conj() @ Ap)
+        Ap -= tau * torch.outer(Ap @ v, v.conj())
+        L -= tau * torch.outer(v, v.conj() @ L)
+    if hi_new < hi:
+        r = torch.arange(K1)[:, None]
+        c = torch.arange(K1)[None, :]
+        dead = (c + 2 <= r) | ((c + 1 == r) & (r >= ku + 1))
+        Ap = Ap.masked_fill(dead, 0)
+        H[s:s + kwe, s - 1:s + kwe] = Ap[1:].to(H.device)
+    return s, kwe, hi_new, sh.to(H.device), \
+        L[1:, 1:].contiguous().to(H.device)
+
+
 class _PlainOps:
     """The steps of a sweep in plain PyTorch, in place on H and Z.  The AED
     window (at most kw x kw) is worked on the CPU, the chase and the slab
@@ -237,79 +316,17 @@ class _PlainOps:
         self.H, self.Z = H, Z
         self.n = H.shape[-1]
         self.m, self.kw, self.wb, self.defl_mult = m, kw, wb, defl_mult
-        self.eps, self.smlnum = _consts(H.dtype)
         self.shifts = None
         self.Lp = None
         self.U = None
         self.xs = self.ys = None
 
     def scan_and_aed(self, hi_top, exc):
-        H, m, kw = self.H, self.m, self.kw
-        eps, smlnum, mult = self.eps, self.smlnum, self.defl_mult
-        lo, hi = band_scan_plain(H, hi_top, mult)
+        lo, hi = band_scan_plain(self.H, hi_top, self.defl_mult)
         if hi <= 0:
             return 0, 0, 0, 0, 0
-        s = max(hi - kw + 1, lo + 1)
-        kwe = hi - s + 1
-        W = H[s:s + kwe, s:s + kwe].cpu()
-        beta = H[s, s - 1].cpu()
-        smax = max(float(W.abs().max()), smlnum)
-        T, Qm, hi_m, _ = _mini_schur(W, 3 * kw + 40)
-        spike = beta * Qm[:, 0]
-        td = torch.diagonal(T)
-        lane = torch.arange(kwe)
-        defl = ((spike.abs() <= mult * eps * torch.clamp(td.abs(), min=smax))
-                & (lane >= hi_m))
-        keep = (~defl).nonzero()
-        ku = int(keep[-1]) + 1 if keep.numel() else 0
-        hi_new = s + ku - 1
-        kum1 = max(ku - 1, 0)
-        if exc:
-            pos = torch.clamp(ku - m + torch.arange(m), 0, kum1)
-            sh = torch.complex(td[pos].real + 0.75 * spike[pos].abs(),
-                               td[pos].imag)
-        else:
-            # undeflated lanes by distance to the new corner (ties in index
-            # order), then the deflated lanes in index order
-            dist = (td - td[kum1]).abs() ** 2
-            dist = torch.where(lane < ku, dist,
-                               torch.full_like(dist, float('inf')))
-            order = torch.sort(dist, stable=True).indices[:m]
-            sh = td[order]
-            if kwe < m:
-                sh = torch.cat([sh, sh[-1:].expand(m - kwe)])
-        self.shifts = sh.to(H.device)
-        # bordered matrix [[0, 0], [spike, T]] and L = diag(1, Qm)
-        K1 = kwe + 1
-        Ap = torch.zeros(K1, K1, dtype=H.dtype)
-        Ap[1:, 1:] = T
-        Ap[1:, 0] = torch.where(defl, torch.zeros_like(spike), spike)
-        L = torch.eye(K1, dtype=H.dtype)
-        L[1:, 1:] = Qm
-        tiny = 1e-30 if H.dtype == torch.complex64 else 1e-290
-        for j in range(ku - 1):
-            col = Ap[:, j]
-            x1 = col[j + 1]
-            sigma = float((col[j + 2:ku + 1].abs() ** 2).sum())
-            if not sigma > 0:
-                continue
-            xn1 = float(x1.abs())
-            ph = x1 / xn1 if xn1 > 0 else torch.ones_like(x1)
-            normx = (sigma + xn1 * xn1) ** 0.5
-            v = torch.zeros(K1, dtype=H.dtype)
-            v[j + 2:ku + 1] = col[j + 2:ku + 1]
-            v[j + 1] = x1 + ph * normx
-            tau = 2. / max(2. * (sigma + xn1 * xn1 + normx * xn1), tiny)
-            Ap -= tau * torch.outer(v, v.conj() @ Ap)
-            Ap -= tau * torch.outer(Ap @ v, v.conj())
-            L -= tau * torch.outer(v, v.conj() @ L)
-        if hi_new < hi:
-            r = torch.arange(K1)[:, None]
-            c = torch.arange(K1)[None, :]
-            dead = (c + 2 <= r) | ((c + 1 == r) & (r >= ku + 1))
-            Ap = Ap.masked_fill(dead, 0)
-            H[s:s + kwe, s - 1:s + kwe] = Ap[1:].to(H.device)
-        self.Lp = L[1:, 1:].contiguous().to(H.device)
+        s, kwe, hi_new, self.shifts, self.Lp = aed_plain(
+            self.H, lo, hi, self.m, self.kw, self.defl_mult, exc)
         return lo, hi, s, kwe, hi_new
 
     def apply_aed(self, s, kwe):
