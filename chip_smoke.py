@@ -17,8 +17,10 @@ Phases (each prints its results; any failure exits non-zero):
      on random complex64 matrices (B=2, n=48) and on the order-6 wave
      matrices A = P Q (B=8, n=338) built by the port's own pq_pair
   4. the large-route kernels against their plain versions: the multishift
-     QR at n = 300 and 640, the slab products, the blocked vectors and the
-     blocked Hessenberg reduction at n = 640, the NaN contract
+     QR at n = 300 and 640, one sweep of chase windows at n = 640 against
+     the plain float32 and float64 chases, the slab products, the blocked
+     vectors and the blocked Hessenberg reduction at n = 640, the NaN
+     contract
   5. the order-6 slice: launch counts of the main path, |t_xx|^2 and the
      raster gradient against a complex128 torch.linalg.eig oracle at 0, 0.2
      and 10 degrees at order 6, and at 10 degrees at order 10 (2N = 882, one
@@ -121,6 +123,26 @@ PLAIN_LANES = 2
 # (round-off decides which subdiagonal entry of a wave matrix deflates first)
 BOTTOM_BAND = 8
 
+# schur_ms's stats, (hi, sweeps, AED-deflated, skipped chases, flops done,
+# flops needed), on the inputs of phases 4, 6 and 9 with PR 5's kernels
+# (chip_smoke.py of commit bb0fee6 on an NVIDIA H100 80GB HBM3, 700 W).
+# The two flop counts sum the sweeps' chase rotations and applied AED
+# transforms, so an equal tuple is the same schedule of rotations
+MS_STATS_PR5 = {
+    'n=300': (0, 87, 294, 44, 6407764592, 817328544),
+    'n=640': (0, 64, 637, 38, 23312448612, 6766040232),
+    'order 20': (0, 281, 3325, 148, 3245527841700, 787502694904),
+}
+# PR 5's schur_ms at order 20 (PERF.md, final run of PR 5): the first two
+# sweeps and the whole Schur form, ms; printed beside this run's times
+MS_MS_PR5 = (60.1, 2540.5)
+# the chase kernel against the plain float32 chase (chase_sweep_check): at
+# most this many times the plain float32 chase's own distance from the
+# float64 one on the same stretch, and never held tighter than the floor
+# (of max|H|; for U absolute)
+CHASE_ROOM = 8
+CHASE_FLOOR = 1e-5
+
 # NVIDIA H100 SXM data sheet: device memory rate and the IEEE float32 rate
 # outside the tensor cores (no TF32)
 HBM_BYTES_PER_S = 3.35e12
@@ -137,6 +159,14 @@ def bound(nbytes, flops):
 
 
 FAILURES = []
+
+
+def vs_pr5(key, st):
+    """schur_ms's stats beside PR 5's on the same input."""
+    st = tuple(int(x) for x in st)
+    ref = MS_STATS_PR5.get(key)
+    same = 'the same' if st == ref else f'PR 5: {ref}'
+    return f'stats {st} ({same})'
 
 
 def check(cond, msg):
@@ -474,6 +504,88 @@ def separated(torch, w, rel=1e-3):
     return gap.amin(-1) > rel * w.abs().amax()
 
 
+def chase_sweep_check(torch, sm, H, m, wb, steps=8):
+    """One sweep of m bulges with AED's shifts on the complex64 Hessenberg
+    matrix H, window by window as the route runs it (windows of wb rows,
+    each window's U applied to the slabs beside it), three times from H:
+    through ms_chase, which forms U after its step loop from the rotations
+    it recorded, and through chase_plain in float32 and in float64, which
+    carry U step by step.  Float32 round-off grows along a chase, so the
+    kernel is held to the plain float32 chase within CHASE_ROOM times what
+    round-off alone does there, the plain float32 chase's distance from the
+    float64 one on the same stretch, or CHASE_FLOOR, whichever is larger:
+      * from one state, over the first `steps` steps of every window and
+        over the last `steps` steps of the sweep, where the last bulges
+        leave the active block at hi: H, U and the carries;
+      * over the sweep, after each window: H;
+    and to U W U^H = W' and U's unitarity within CHASE_FLOOR in every
+    window, and to an H that is Hessenberg again after the last window.
+    Returns (rows, ok): rows of (what, error, round-off, limit), H and the
+    carries relative to max|H|."""
+    n, c128 = H.shape[-1], torch.complex128
+    lo, hi = sm.band_scan_plain(H, n - 1, 4.0)
+    shifts = sm.aed_plain(H.clone(), lo, hi, m, sm.AED_KW, 4.0, False)[3]
+    scale = float(H.abs().max())
+    runs = {'k': H.clone(), 32: H.clone(), 64: H.to(c128)}
+    carries = {k: torch.zeros(2 * m, dtype=X.dtype, device=H.device)
+               for k, X in runs.items()}
+    rows = []
+
+    def chase(key, X, xy, a, wbe, t0, t1):
+        if key == 'k':
+            U = torch.empty(wbe, wbe, dtype=X.dtype, device=X.device)
+            sm.ms_chase(X, shifts, xy, a, wbe, t0, t1, lo, hi, U)
+            return U
+        U = torch.eye(wbe, dtype=X.dtype, device=X.device)
+        xs, ys = sm.chase_plain(X, shifts.to(X.dtype), xy[:m].clone(),
+                                xy[m:].clone(), a, wbe, t0, t1, lo, hi, U=U)
+        xy.copy_(torch.cat([xs, ys]))
+        return U
+
+    def apart(x, y):
+        return float((x.to(c128) - y.to(c128)).abs().max())
+
+    def row(what, got, p32, p64, rel):
+        err, gap = apart(got, p32) / rel, apart(p32, p64) / rel
+        rows.append((what, err, gap, max(CHASE_ROOM * gap, CHASE_FLOOR)))
+
+    def from_state(what, X, xy, a, wbe, t0, t1):
+        out = {}
+        for key in runs:
+            dt = c128 if key == 64 else X.dtype
+            Xc, xyc = X.to(dt, copy=True), xy.to(dt, copy=True)
+            out[key] = (Xc, chase(key, Xc, xyc, a, wbe, t0, t1), xyc)
+        for i, part, rel in ((0, 'H', scale), (1, 'U', 1.), (2, 'xy', scale)):
+            row(f'{what} {part}', *(out[k][i] for k in (('k', 32, 64))), rel)
+
+    windows = list(sm.chase_windows(n, lo, hi, m, wb))
+    for j, (a, wbe, tcur, t_end) in enumerate(windows):
+        e = a + wbe
+        from_state(f'window {j} steps {tcur}-{tcur + steps - 1}',
+                   runs['k'], carries['k'], a, wbe, tcur, tcur + steps - 1)
+        if j == len(windows) - 1:
+            X, xy = runs['k'].clone(), carries['k'].clone()
+            chase('k', X, xy, a, wbe, tcur, t_end - steps)
+            from_state(f'sweep steps {t_end - steps + 1}-{t_end}', X, xy, a,
+                       wbe, t_end - steps + 1, t_end)
+        W0 = runs['k'][a:e, a:e].clone()
+        for key, X in runs.items():
+            U = chase(key, X, carries[key], a, wbe, tcur, t_end)
+            if key == 'k':
+                eye = torch.eye(wbe, dtype=X.dtype, device=X.device)
+                rows.append((f'window {j} U W U^H - W\'',
+                             apart(U @ W0 @ U.mH, X[a:e, a:e]) / scale, 0.,
+                             CHASE_FLOOR))
+                rows.append((f'window {j} U^H U - I', apart(U.mH @ U, eye),
+                             0., CHASE_FLOOR))
+            X[a:e, e:] = U @ X[a:e, e:]
+            X[:a, a:e] = X[:a, a:e] @ U.mH
+        row(f'sweep to window {j} H', runs['k'], runs[32], runs[64], scale)
+    rows.append(('below the subdiagonal after the sweep',
+                 float(torch.tril(runs['k'], -2).abs().max()) / scale, 0., 0.))
+    return rows, all(err <= lim for _, err, _, lim in rows)
+
+
 def large_kernel_checks(torch, ek, dev):
     """Phase 4: the kernels of the large-n route against their plain
     versions on random complex64 matrices."""
@@ -491,7 +603,8 @@ def large_kernel_checks(torch, ek, dev):
     Tp, Zp, stp = sm.schur_ms_plain(H, Q, return_stats=True, **cfg)
     torch.cuda.synchronize()
     print(f'-- schur_ms n={N_MID} {cfg}: kernels (hi, sweeps, aed, skipped) '
-          f'{st[:4]}, plain {stp[:4]} in {time.perf_counter() - t0:.1f} s')
+          f'{st[:4]}, plain {stp[:4]} in {time.perf_counter() - t0:.1f} s; '
+          f'kernels\' {vs_pr5("n=300", st)}')
     w, wp = torch.diagonal(T), torch.diagonal(Tp)
     rho = float(wp.abs().max())
     d = max(nearest_err(w, wp), nearest_err(wp, w)) / rho
@@ -537,12 +650,27 @@ def large_kernel_checks(torch, ek, dev):
     res, orth, tri = schur_quality(torch, A, T, Z)
     print(f'-- schur_ms n={N_BIG} as the route calls it (m={m}, kw={sm.AED_KW}, '
           f'wb={sm.window(m)}; plain version skipped: minutes at this size): '
-          f'(hi, sweeps, aed, skipped) {st[:4]}; '
+          f'(hi, sweeps, aed, skipped) {st[:4]}, {vs_pr5("n=640", st)}; '
           f'eigenvalues vs complex128 {d:.2e}; residual {res:.2e}; '
           f'unitarity {orth:.2e}')
     check(st[0] == 0 and d <= 1e-4 and res <= 1e-5 and orth <= 1e-5 and tri,
           f'schur_ms n={N_BIG}: converged, eigenvalues <= 1e-4, residual and '
           'unitarity <= 1e-5')
+    # a whole sweep of chase windows as the route calls them at this size
+    # (staged in shared memory), and with the m = 32 windows of order 25
+    # (192 rows, worked in device memory): kernel against the plain float32
+    # and float64 chases, window by window and over the sweep's last steps
+    for mc, wbc in ((m, sm.window(m)), (32, sm.window(32))):
+        rows, ok = chase_sweep_check(torch, sm, H, mc, wbc)
+        print(f'-- ms_chase n={N_BIG} m={mc} wb={wbc} (U formed after the '
+              'chase), one sweep: kernel against plain float32, plain '
+              'float32 against float64, limit')
+        for what, err, gap, lim in rows:
+            print(f'     {what}: {err:.2e}, {gap:.2e}, {lim:.2e}')
+        check(ok, f'ms_chase m={mc} wb={wbc}: H, U, carries == plain float32 '
+              f'chase within max({CHASE_ROOM}x its float64 distance, '
+              f'{CHASE_FLOOR}); U W U^H == W\', U unitary; H Hessenberg after '
+              'the sweep')
     Y = vb.tri_vectors_blocked(T)
     Yp = plain_blocked_vectors(torch, vb, T, vb.MAX_BLOCK)
     Y1 = ek.tri_vectors(T[None].contiguous())[0]
@@ -556,24 +684,27 @@ def large_kernel_checks(torch, ek, dev):
     check(e_p <= 1e-4 and e_1 <= 1e-4,
           f'tri_vectors_blocked n={N_BIG} == plain == batched kernel <= 1e-4')
 
-    # the slab products at the main path's shapes: n = 3362, the chase
-    # window's unitary and an AED transform of a window cut to the active
-    # block (at most kw = 64)
+    # the slab products at the main path's shapes, the three products of
+    # an applied transform in one launch as the route calls them: n = 3362,
+    # the chase window's unitary and an AED transform of a window cut to
+    # the active block (at most kw = 64)
     X = rand_c64(torch, N_SLAB, 7, dev)
+    Z = rand_c64(torch, N_SLAB, 8, dev)
     worst = 0.
     for wdt, a in ((sm.window(eq.large_shifts(N_SLAB)), N_SLAB // 3),
                    (sm.AED_KW, N_SLAB - 361), (61, N_SLAB - 200)):
-        P = rand_c64(torch, wdt, wdt, dev)
-        ref = X.clone()
-        ref[a:a + wdt, a + wdt:] = P @ X[a:a + wdt, a + wdt:]
-        got = sm.ms_apply_left(X.clone(), a, a + wdt, N_SLAB, P)
-        worst = max(worst, float((got - ref).abs().max() / ref.abs().max()))
-        ref = X.clone()
-        ref[:, a:a + wdt] = X[:, a:a + wdt] @ P.mH
-        got = sm.ms_apply_right(X.clone(), 0, N_SLAB, a, P)
-        worst = max(worst, float((got - ref).abs().max() / ref.abs().max()))
-    print(f'-- ms_apply_left/right vs torch.matmul: {worst:.2e} relative')
-    check(worst <= 1e-5, 'slab products == torch.matmul within 1e-5')
+        P, e = rand_c64(torch, wdt, wdt, dev), a + wdt
+        ref_X, ref_Z = X.clone(), Z.clone()
+        ref_X[a:e, e:] = P @ X[a:e, e:]
+        ref_X[:a, a:e] = X[:a, a:e] @ P.mH
+        ref_Z[:, a:e] = Z[:, a:e] @ P.mH
+        got = sm.ms_apply_window(X.clone(), Z.clone(), a, wdt, P)
+        for g, r in zip(got, (ref_X, ref_Z)):
+            worst = max(worst, float((g - r).abs().max() / r.abs().max()))
+    print(f'-- ms_apply_window (one launch) vs torch.matmul: {worst:.2e} '
+          'relative')
+    check(worst <= 1e-5, 'ms_apply_window == torch.matmul within 1e-5')
+    del X, Z
 
     A = rand_c64(torch, N_MID, 301, dev)
     H, Q = hessenberg_blocked(A)
@@ -621,7 +752,7 @@ def order20_slice(torch, tp, ek, dev, out):
     res, orth, tri = schur_quality(torch, A, T, Z)
     print(f'  hessenberg_blocked residual {hres:.2e}; schur_ms (hi, sweeps, '
           f'aed-deflated, skipped chases) {st[:4]}, {st[4]:.3e} flops done '
-          f'for {st[5]:.3e} needed; '
+          f'for {st[5]:.3e} needed, {vs_pr5("order 20", st)}; '
           f'Schur residual {res:.2e}, unitarity {orth:.2e}')
     check(st[0] == 0 and tri, 'order 20: schur_ms converged, T triangular')
     # float32 round-off of ~2000 slab products through Z: 1e-4, not 1e-5
@@ -754,6 +885,28 @@ def order20_slice(torch, tp, ek, dev, out):
           f'torch.linalg.eig complex64 {T_l0.tolist()}')
     check(bool(torch.isfinite(T_k0).all()) and dT0 <= 1e-4,
           f'order 20, 0 deg: |t_xx|^2 vs oracle {dT0:.2e} <= 1e-4')
+
+
+def schur_ms_split(torch, sm, H, Q, cfg):
+    """Device time of one schur_ms(H, Q) by part, from torch.profiler:
+    {part: (ms, launches)} for the chase windows, the slab products, AED
+    and the band scan."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        sm.schur_ms(H, Q, **cfg)
+        torch.cuda.synchronize()
+    parts = {'ms_chase': 'chase', 'ms_apply': 'slab products',
+             'ms_aed': 'AED', 'ms_band_scan': 'band scan'}
+    split = {v: [0., 0] for v in parts.values()}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        for key, part in parts.items():
+            if '::' + key in e.key:
+                split[part][0] += e.self_device_time_total / 1e3
+                split[part][1] += e.count
+    return split
 
 
 def profile_order20(torch, tp, eps):
@@ -1781,6 +1934,14 @@ def main():
     print(f'  schur_ms, the whole Schur form at n = {nL}: kernel {ms_ms:.3f} '
           f'ms, bound {full_bound[0]:.4f} ms by {full_bound[1]} '
           f'({o20["need"]:.3e} flops needed), plain not run [{smi}]')
+    print(f'  schur_ms before this redesign, not measured here (PR 5\'s final '
+          f'run, PERF.md): the whole Schur form {MS_MS_PR5[1]} ms, the first '
+          f'two sweeps {MS_MS_PR5[0]} ms')
+    split = schur_ms_split(torch, sm, H20, Q20, cfgL)
+    print(f'  schur_ms split at n = {nL} (torch.profiler, device time by '
+          f'kernel over one call): ' + '; '.join(
+              f'{k} {v[0]:.1f} ms in {v[1]} launches ({v[0] / v[1]:.4f} ms '
+              f'each)' for k, v in split.items() if v[1]) + f' [{smi}]')
     # the in-block kernel alone over all row blocks, S precomputed
     dmin = vb.pivot_floor(T20)
     blocks = [(max(r1 - vb.MAX_BLOCK, 0), r1)
@@ -1881,7 +2042,8 @@ def main():
                for k in REPLACES]
     kernels[list(REPLACES).index('schur_ms')].update(
         work='the first two sweeps at n = 3362', full_ms=ms_ms,
-        full_bound_ms=full_bound[0], full_bound_by=full_bound[1])
+        full_bound_ms=full_bound[0], full_bound_by=full_bound[1],
+        split_ms={k: v[0] for k, v in split.items()})
     kernels[list(REPLACES).index('schur_qr_v2')].update(
         work=f'the first {V2_BUDGET} sweeps at B = 8, n = 338',
         full_ms=alt['v2_full'][0], full_bound_ms=alt['v2_full'][1][0],

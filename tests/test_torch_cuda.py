@@ -11,6 +11,9 @@ Inputs are random complex64 matrices made with numpy from a seed, small
 enough (n = 40) for the plain versions to be quick on the card.
 """
 
+import os
+import sys
+
 import numpy as np
 import pytest
 
@@ -148,23 +151,52 @@ def _rand1(dev, n, seed, scale=0.3):
 
 @pytest.mark.parametrize('side', ['left', 'right'])
 def test_ms_slab_products_match_matmul(dev, side):
-    # one random slab; an AED-sized transform, the route's chase window and
-    # the widest window the kernels take, ragged edges: the FFMA tiles sum
-    # in another order than cuBLAS, 1e-5 relative
-    X = _rand1(dev, 700, 10)
-    for w, a in ((61, 301), (128, 192), (256, 128)):
-        P = _rand1(dev, w, 11)
-        ref, got = X.clone(), X.clone()
-        before = ek.LAUNCHES['schur_ms']
+    # one slab kind a launch of ms_apply_window, the other ranges empty: the
+    # rows of a window at the top of H times an AED-sized transform, the
+    # route's chase window and the widest window the kernel takes (left),
+    # or the columns of a window at the bottom of H, the rows above it and
+    # all of Z (right); ragged edges; the FFMA tiles sum in another order
+    # than cuBLAS, 1e-5 relative
+    X, n = _rand1(dev, 700, 10), 700
+    for w in (61, 128, 256):
+        P, a = _rand1(dev, w, 11), 0 if side == 'left' else n - w
+        Z = _rand1(dev, n, 12)[:611 if side == 'right' else 0]
+        ref_X, ref_Z = X.clone(), Z.clone()
         if side == 'left':
-            ref[a:a + w, 37:693] = P @ X[a:a + w, 37:693]
-            sm.ms_apply_left(got, a, 37, 693, P)
+            ref_X[:w, w:] = P @ X[:w, w:]
         else:
-            ref[5:611, a:a + w] = X[5:611, a:a + w] @ P.mH
-            sm.ms_apply_right(got, 5, 611, a, P)
+            ref_X[:a, a:] = X[:a, a:] @ P.mH
+            ref_Z[:, a:] = Z[:, a:] @ P.mH
+        got_X, got_Z = X.clone(), Z.clone()
+        before = ek.LAUNCHES['schur_ms']
+        sm.ms_apply_window(got_X, got_Z, a, w, P)
         torch.cuda.synchronize()
         assert ek.LAUNCHES['schur_ms'] == before + 1
-        assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+        for got, ref in ((got_X, ref_X), (got_Z, ref_Z))[:1 + (a > 0)]:
+            assert float((got - ref).abs().max()) \
+                <= 1e-5 * float(ref.abs().max())
+
+
+def test_ms_apply_window_matches_matmul(dev):
+    # one launch for the three products of an applied transform: an AED
+    # transform (61), the route's chase window (128), the widest window
+    # (256), a window at the top (nothing above it) and one at the bottom
+    # (nothing right of it), n = 700 with ragged strips; 1e-5 relative
+    H, Z = _rand1(dev, 700, 12), _rand1(dev, 700, 13)
+    for w, a in ((61, 301), (128, 192), (256, 128), (128, 0), (64, 636)):
+        P, e = _rand1(dev, w, 14), a + w
+        ref_H, ref_Z = H.clone(), Z.clone()
+        ref_H[a:e, e:] = P @ H[a:e, e:]
+        ref_H[:a, a:e] = H[:a, a:e] @ P.mH
+        ref_Z[:, a:e] = Z[:, a:e] @ P.mH
+        got_H, got_Z = H.clone(), Z.clone()
+        before = ek.LAUNCHES['schur_ms']
+        sm.ms_apply_window(got_H, got_Z, a, w, P)
+        torch.cuda.synchronize()
+        assert ek.LAUNCHES['schur_ms'] == before + 1
+        for got, ref in ((got_H, ref_H), (got_Z, ref_Z)):
+            assert float((got - ref).abs().max()) \
+                <= 1e-5 * float(ref.abs().max())
 
 
 @pytest.mark.parametrize('n,m,kw,wb', LARGE)
@@ -199,6 +231,27 @@ def test_schur_ms_kernels_poison_on_a_starved_budget(dev):
     T, _, st = sm.schur_ms(H, Q, m=8, kw=24, budget=1, return_stats=True)
     assert st[0] > 0 and st[1] == 1
     assert bool(torch.isnan(torch.diagonal(T)).all())
+
+
+@pytest.mark.parametrize('m,wb', [(24, 128), (32, 192)])
+def test_ms_chase_forms_the_window_unitary_after_the_chase(dev, m, wb):
+    # the route's window at order 20 (m = 24, 128 rows, staged in shared
+    # memory) and at order 25 (m = 32, 192 rows, worked in device memory),
+    # one sweep at n = 640 through chip_smoke.py's check: the kernel against
+    # the plain float32 chase within a multiple of the plain float32
+    # chase's own distance from float64, from one state over the first
+    # steps of every window and the last steps of the sweep, and over the
+    # sweep; U W U^H = W' and U unitary in every window; H Hessenberg after
+    # the sweep
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    from chip_smoke import chase_sweep_check
+    H, _ = hessenberg_blocked(_rand1(dev, 640, 40 + m))
+    before = ek.LAUNCHES['schur_ms']
+    rows, ok = chase_sweep_check(torch, sm, H, m, wb)
+    torch.cuda.synchronize()
+    assert ek.LAUNCHES['schur_ms'] > before
+    assert ok, [r for r in rows if r[1] > r[3]]
 
 
 @pytest.mark.parametrize('n', [96, 300])

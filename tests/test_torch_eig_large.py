@@ -221,14 +221,19 @@ def test_schur_ms_refuses_what_is_not_ported():
 
 
 def test_ms_slab_products_on_the_cpu_are_matmuls():
-    X = torch.as_tensor(_rand(40, 8))
-    P = torch.as_tensor(_rand(7, 9))
+    # ms_apply_window on CPU tensors: a window at the top (only the rows
+    # right of it), one at the bottom (only the columns above it and Z's)
+    X, Z = torch.as_tensor(_rand(40, 8)), torch.as_tensor(_rand(40, 9))
+    P = torch.as_tensor(_rand(7, 10))
     ref = X.clone()
-    ref[3:10, 5:33] = P @ X[3:10, 5:33]
-    assert torch.equal(sm.ms_apply_left(X.clone(), 3, 5, 33, P), ref)
-    ref = X.clone()
-    ref[2:31, 11:18] = X[2:31, 11:18] @ P.mH
-    assert torch.equal(sm.ms_apply_right(X.clone(), 2, 31, 11, P), ref)
+    ref[:7, 7:] = P @ X[:7, 7:]
+    got, _ = sm.ms_apply_window(X.clone(), Z[:0], 0, 7, P)
+    assert torch.equal(got, ref)
+    ref, ref_Z = X.clone(), Z.clone()
+    ref[:33, 33:] = X[:33, 33:] @ P.mH
+    ref_Z[:, 33:] = Z[:, 33:] @ P.mH
+    got, got_Z = sm.ms_apply_window(X.clone(), Z.clone(), 33, 7, P)
+    assert torch.equal(got, ref) and torch.equal(got_Z, ref_Z)
 
 
 # ---------------------------------------------------------------------------

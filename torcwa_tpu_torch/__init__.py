@@ -5,8 +5,11 @@ on complex tensors, with the layer eigendecomposition in hand-written CUDA
 kernels for Hopper (``ops/eig_kernels.py``, sources in ``csrc/``).  On a
 CPU tensor each kernel wrapper uses its plain PyTorch version.
 
-Importing the package sets no global state; every entry point pins IEEE
-float32 matmuls (no TF32) when it runs.
+Importing the package sets no global state.  The first solve does: every
+entry point pins IEEE float32 (``_constants.pin_f32_precision``: TF32 off
+for cuBLAS matmuls and cuDNN, float32 matmul precision 'highest') for the
+rest of the process and never restores the earlier setting, so other code
+in the same process that wants TF32 must turn it back on after a solve.
 """
 
 from .geometry import geometry, rcwa_geo

@@ -44,25 +44,43 @@
 //    in shared memory for the chase and written back at its end, a wider
 //    one is worked in device memory.  At a step the m rotations touch
 //    disjoint row pairs and disjoint column pairs and their parameters are
-//    known from the step before, so all row rotations (H window and the
-//    window's accumulated unitary U) run in parallel, then all column
-//    rotations: three barriers per step.  Row rotations cover columns
-//    >= max(k - 1, lo) only, so that a bump created by a trailing bulge is
-//    never smeared by the bulge ahead of it.
-//  * ms_apply_left / ms_apply_right: the small unitary times a slab of H
-//    or Z, in place, as a tiled complex GEMM in IEEE f32 FFMA: a block owns
-//    a strip of 32 columns (rows), stages it in shared memory, accumulates
-//    in registers and writes it back.
+//    known from the step before, so all row rotations of the H window run
+//    in parallel, then all column rotations: three barriers per step.  A
+//    warp takes a bulge and its lanes the contiguous run of the row pair
+//    (column pair) the rotation touches, a few pairs loaded before any is
+//    stored, so that an element costs a few adds of index arithmetic and
+//    no thread waits on elements it does not rotate.  Row rotations cover
+//    columns >= max(k - 1, lo) only, so that a bump created by a trailing
+//    bulge is never smeared by the bulge ahead of it.
+//    The step loop rotates H alone and records each rotation (c, s) in
+//    shared memory; the window's accumulated unitary U, the product of
+//    those row rotations in order, is formed after the last step by all
+//    threads, a column and a share of each step's bulges a thread, one
+//    barrier a step (columns of U are independent under row rotations),
+//    with the row phase's expressions in the chase's order: the bits U
+//    gets when a step loop carries it.
+//  * ms_apply_slabs: the small unitary P times the slabs of H and Z it
+//    transforms, in place, one launch per applied window or AED transform
+//    (left on H's columns right of the window, right on H's rows above it
+//    and on all of Z's), in IEEE f32 FFMA: a block owns a strip of 32
+//    columns (rows) of one slab, stages all of it in shared memory before
+//    it writes any of it, takes P in double-buffered tiles by cp.async and
+//    keeps a register tile of up to 8 x 4 outputs a thread.
 //
-// What bounds it on an H100: the chase runs in one block, so on one SM's
-// path to the L2 cache: worked in device memory a step moves ~m (2 wb x
-// 32 B in the row phase + wb x 128 B in the column phase, whose 16-byte
-// accesses fetch whole 32-byte sectors), ~0.5 MB at m = 24, wb = 128, and
-// takes ~9 us; keeping more loads in flight per thread changed nothing.
-// Hence the narrow window staged in shared memory, which leaves U's rows
-// (m wb x 32 B a step) as the traffic; a cluster per window is later work.
-// AED is the serial mini-Schur in one block; the slab products are the
-// only throughput part (~2 n wb^2 complex multiply-adds per window).
+// What bounds it on an H100: the chase runs in one block, so on one SM.
+// Worked in device memory a step moves ~m (2 wb x 32 B in the row phase +
+// wb x 128 B in the column phase, whose 16-byte accesses fetch whole
+// 32-byte sectors), ~0.5 MB at m = 24, wb = 128; hence the narrow window
+// staged in shared memory, where the step loop touches nothing else and a
+// step is bound by its three barriers and the latency of its dependent
+// shared-memory loads.  U is formed once per window after the loop (steps
+// x m row pairs of wb elements), a sizeable share of a window at wb =
+// 128, where all threads with a barrier a step beat one thread per column
+// without barriers.  AED is the serial mini-Schur in one
+// block.  The slab products are the only throughput part (~2 n wb^2
+// complex multiply-adds per window, 0.86 GFLOP at n = 3362, wb = 128: 13
+// us at the 67 TFLOP/s FFMA rate), ~200 strips of 32 at that size, 1.5
+// a streaming multiprocessor.
 
 #include "ms_aed.cuh"
 #include "ms_shifts.cuh"
@@ -72,13 +90,12 @@ namespace {
 constexpr int kScanThreads = 1024;
 constexpr int kAedThreads = 128;
 constexpr int kChaseThreads = 1024;
+constexpr int kChaseWarps = kChaseThreads / 32;
+constexpr int kStepBatch = 4;  // rotated pairs a lane loads before it stores
 constexpr size_t kMaxChaseSmem = 225 * 1024;  // dynamic, beside ~2 KB static
-constexpr int kGemmThreads = 256;
 constexpr int kMaxM = 64;     // shifts per sweep
 constexpr int kMaxKw = kAedMaxKw;  // AED window
 constexpr int kMaxW = 256;    // order of a slab transform (chase window)
-constexpr int kStrip = 32;    // columns (rows) of a slab per block
-constexpr int kKT = 8;        // depth of a staged tile of the transform
 
 // info[]: what the host reads back once per sweep
 enum { I_LO = 0, I_HI, I_S, I_KWE, I_HINEW, I_KU, I_HIM, I_MINI_IT, I_COUNT };
@@ -166,28 +183,97 @@ ms_trailing_shifts(const float2* __restrict__ H, int n, int* __restrict__ info,
 // bulge chase through one window
 // ---------------------------------------------------------------------------
 
+// One rotation G = [[c, s], [-conj(s), c]] on the pair (xk, x1) from the
+// left, as (top, bottom): the H chase's row phase and the window unitary's
+// formation share it, so U gets the same bits whichever of the two
+// accumulates it.
+__device__ __forceinline__ float2 rot_top(float c, float2 sg, float2 xk,
+                                          float2 x1) {
+  return c_add(c_scale(c, xk), c_mul(sg, x1));
+}
+__device__ __forceinline__ float2 rot_bottom(float c, float2 sg, float2 xk,
+                                             float2 x1) {
+  return c_sub(c_scale(c, x1), c_cmul(sg, xk));
+}
+
+// The window unitary U (wb x wb, leading dimension wb, in shared or device
+// memory) from the rotations the chase recorded: rc / rs hold step t's
+// rotation of bulge i at (t - tcur) m + i.  A column of U is independent
+// of the others under row rotations and the rotations of a step touch
+// disjoint row pairs, so thread (j, g) forms column j for the bulges
+// i = g mod G of each step, G = kChaseThreads / wb groups side by side,
+// a barrier between steps; a thread issues the loads of up to kFormBatch
+// rotations before it stores any.  Call from all threads.
+constexpr int kFormBatch = 4;
+
+__device__ __forceinline__ void form_window_unitary(
+    float2* U, int tid, int a, int wb, int tcur, int t_end, int lo, int hi,
+    int m, const float* rc, const float2* rs) {
+  for (int e = tid; e < wb * wb; e += kChaseThreads)
+    U[e] = c_make(e / wb == e % wb ? 1.f : 0.f, 0.f);
+  __syncthreads();
+  const int G = kChaseThreads / wb, j = tid % wb, g = tid / wb;
+  // bulge i is valid where lo + 2 i + 1 <= hi
+  const int i_valid = hi > lo ? min(m, (hi - lo - 1) / 2 + 1) : 0;
+  for (int t = tcur; t <= t_end; ++t) {
+    // bulge i is active where lo <= t - 2 i < hi
+    const int i0 = max(0, (t - hi + 2) / 2);
+    const int i1 = min(i_valid, (t - lo) / 2 + 1);
+    const float* c_t = rc + (size_t)(t - tcur) * m;
+    const float2* s_t = rs + (size_t)(t - tcur) * m;
+    if (g < G)
+      for (int ib = i0 + g; ib < i1; ib += G * kFormBatch) {
+        float2 uk[kFormBatch], u1[kFormBatch];
+#pragma unroll
+        for (int q = 0; q < kFormBatch; ++q) {
+          const int k = t - 2 * (ib + G * q);
+          if (ib + G * q < i1) {
+            uk[q] = U[(size_t)(k - a) * wb + j];
+            u1[q] = U[(size_t)(k + 1 - a) * wb + j];
+          }
+        }
+#pragma unroll
+        for (int q = 0; q < kFormBatch; ++q) {
+          const int i = ib + G * q, k = t - 2 * i;
+          if (i < i1) {
+            const float c = c_t[i];
+            const float2 sg = s_t[i];
+            U[(size_t)(k - a) * wb + j] = rot_top(c, sg, uk[q], u1[q]);
+            U[(size_t)(k + 1 - a) * wb + j] = rot_bottom(c, sg, uk[q], u1[q]);
+          }
+        }
+      }
+    __syncthreads();
+  }
+}
+
 // Hw points at the window's top-left entry, with leading dimension ldh:
-// into H itself (ldh = n), or, when `staged`, into a copy of the window
-// in shared memory (ldh = wb + 1) that is written back at the end.
+// into H itself (ldh = n), or, when kStaged, into a copy of the window in
+// shared memory (ldh = wb + 1) that is written back at the end.  The step
+// loop rotates H alone and records each step's rotations in shared memory
+// after the window (rs, then rc); U is formed from them at the end, in the
+// window's shared memory when staged, else in U itself.  kStaged is a
+// template parameter so that the staged kernel's accesses compile to
+// shared-memory instructions.
+template <bool kStaged>
 __global__ void __launch_bounds__(kChaseThreads)
 ms_chase(float2* __restrict__ H, int n, float2* __restrict__ U, int a, int wb,
          int tcur, int t_end, int lo, int hi, int m,
-         const float2* __restrict__ shifts, float2* __restrict__ xy,
-         int staged) {
+         const float2* __restrict__ shifts, float2* __restrict__ xy) {
   extern __shared__ float2 sm[];
-  __shared__ float s_c[kMaxM];
-  __shared__ float2 s_s[kMaxM], s_x[kMaxM], s_y[kMaxM];
+  __shared__ float2 s_x[kMaxM], s_y[kMaxM];
   __shared__ unsigned char s_act[kMaxM];
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   float2* const Hg = H + (size_t)a * n + a;
-  float2* const Hw = staged ? sm : Hg;
-  const int ldh = staged ? wb + 1 : n;
+  float2* const Hw = kStaged ? sm : Hg;
+  const int ldh = kStaged ? wb + 1 : n;
+  const int nsteps = max(t_end - tcur + 1, 0);
+  float2* const rs = sm + (kStaged ? (size_t)wb * ldh : 0);
+  float* const rc = (float*)(rs + (size_t)nsteps * m);
 
-  for (int e = tid; e < wb * wb; e += kChaseThreads) {
-    U[e] = c_make(e / wb == e % wb ? 1.f : 0.f, 0.f);
-    if (staged)
+  if (kStaged)
+    for (int e = tid; e < wb * wb; e += kChaseThreads)
       sm[(e / wb) * ldh + e % wb] = Hg[(size_t)(e / wb) * n + e % wb];
-  }
   if (tid < m) {
     s_x[tid] = xy[tid];
     s_y[tid] = xy[m + tid];
@@ -195,6 +281,8 @@ ms_chase(float2* __restrict__ H, int n, float2* __restrict__ U, int a, int wb,
   __syncthreads();
 
   for (int t = tcur; t <= t_end; ++t) {
+    float* const c_t = rc + (size_t)(t - tcur) * m;
+    float2* const s_t = rs + (size_t)(t - tcur) * m;
     // ---- the step's rotations ----
     if (tid < m) {
       const int i = tid, k = t - 2 * i;
@@ -207,180 +295,250 @@ ms_chase(float2* __restrict__ H, int n, float2* __restrict__ U, int a, int wb,
           s_y[i] = Hw[(lo + 1 - a) * ldh + lo - a];
         }
         const Givens g = givens(s_x[i], s_y[i]);
-        s_c[i] = g.c;
-        s_s[i] = g.s;
+        c_t[i] = g.c;
+        s_t[i] = g.s;
       }
     }
     __syncthreads();
-    // ---- rows k, k+1: the window's columns of H, and U ----
-    for (int idx = tid; idx < m * 2 * wb; idx += kChaseThreads) {
-      const int i = idx / (2 * wb), jj = idx % (2 * wb);
+    // ---- rows k, k+1: the window's columns >= max(k - 1, lo) of H; a
+    // warp per bulge, its lanes along the rows ----
+    for (int i = warp; i < m; i += kChaseWarps) {
       if (!s_act[i]) continue;
       const int k = t - 2 * i;
-      const float c = s_c[i];
-      const float2 sg = s_s[i];
-      float2 *pk, *p1;
-      bool zap = false;
-      if (jj < wb) {
-        const int col = a + jj;
-        if (col < max(k - 1, lo)) continue;
-        pk = Hw + (size_t)(k - a) * ldh + jj;
-        p1 = pk + ldh;
-        zap = (col == k - 1) && (k > lo);
-      } else {
-        pk = U + (size_t)(k - a) * wb + (jj - wb);
-        p1 = pk + wb;
+      const float c = c_t[i];
+      const float2 sg = s_t[i];
+      float2* const rk = Hw + (size_t)(k - a) * ldh;
+      const int zap = k > lo ? k - 1 - a : -1;  // H[k+1, k-1] becomes 0
+      for (int j0 = max(max(k - 1, lo) - a, 0) + lane; j0 < wb;
+           j0 += 32 * kStepBatch) {
+        float2 hk[kStepBatch], h1[kStepBatch];
+#pragma unroll
+        for (int q = 0; q < kStepBatch; ++q) {
+          const int jj = j0 + 32 * q;
+          if (jj < wb) {
+            hk[q] = rk[jj];
+            h1[q] = rk[jj + ldh];
+          }
+        }
+#pragma unroll
+        for (int q = 0; q < kStepBatch; ++q) {
+          const int jj = j0 + 32 * q;
+          if (jj < wb) {
+            rk[jj] = rot_top(c, sg, hk[q], h1[q]);
+            rk[jj + ldh] = jj == zap ? c_make(0.f, 0.f)
+                                     : rot_bottom(c, sg, hk[q], h1[q]);
+          }
+        }
       }
-      const float2 hk = *pk, h1 = *p1;
-      *pk = c_add(c_scale(c, hk), c_mul(sg, h1));
-      *p1 = zap ? c_make(0.f, 0.f) : c_sub(c_scale(c, h1), c_cmul(sg, hk));
     }
     __syncthreads();
-    // ---- columns k, k+1: the window's rows of H up to min(k+2, hi) ----
-    for (int idx = tid; idx < m * wb; idx += kChaseThreads) {
-      const int i = idx / wb, r = a + idx % wb;
+    // ---- columns k, k+1: the window's rows of H up to min(k+2, hi); a
+    // warp per bulge, its lanes down the columns ----
+    for (int i = warp; i < m; i += kChaseWarps) {
       if (!s_act[i]) continue;
       const int k = t - 2 * i;
-      if (r > min(k + 2, hi)) continue;
-      const float c = s_c[i];
-      const float2 sg = s_s[i];
-      float2* p = Hw + (size_t)(r - a) * ldh + k - a;
-      const float2 l = p[0], rr = p[1];
-      const float2 nl = c_add(c_scale(c, l), c_cmul(sg, rr));
-      p[0] = nl;
-      p[1] = c_sub(c_scale(c, rr), c_mul(sg, l));
-      if (r == k + 1) {
-        s_x[i] = nl;
-        if (k + 2 > hi) s_y[i] = c_make(0.f, 0.f);
+      const float c = c_t[i];
+      const float2 sg = s_t[i];
+      float2* const ck = Hw + (k - a);
+      const int r_end = min(min(k + 2, hi) - a + 1, wb);
+      for (int r0 = lane; r0 < r_end; r0 += 32 * kStepBatch) {
+        float2 l[kStepBatch], rr[kStepBatch];
+#pragma unroll
+        for (int q = 0; q < kStepBatch; ++q) {
+          const int r = r0 + 32 * q;
+          if (r < r_end) {
+            l[q] = ck[(size_t)r * ldh];
+            rr[q] = ck[(size_t)r * ldh + 1];
+          }
+        }
+#pragma unroll
+        for (int q = 0; q < kStepBatch; ++q) {
+          const int r = r0 + 32 * q;
+          if (r < r_end) {
+            const float2 nl = c_add(c_scale(c, l[q]), c_cmul(sg, rr[q]));
+            ck[(size_t)r * ldh] = nl;
+            ck[(size_t)r * ldh + 1] =
+                c_sub(c_scale(c, rr[q]), c_mul(sg, l[q]));
+            if (a + r == k + 1) {
+              s_x[i] = nl;
+              if (k + 2 > hi) s_y[i] = c_make(0.f, 0.f);
+            }
+            if (a + r == k + 2) s_y[i] = nl;
+          }
+        }
       }
-      if (r == k + 2) s_y[i] = nl;
     }
     __syncthreads();
   }
-  if (staged)
-    for (int e = tid; e < wb * wb; e += kChaseThreads)
-      Hg[(size_t)(e / wb) * n + e % wb] = sm[(e / wb) * ldh + e % wb];
   if (tid < m) {
     xy[tid] = s_x[tid];
     xy[m + tid] = s_y[tid];
   }
+  if (!kStaged) {
+    form_window_unitary(U, tid, a, wb, tcur, t_end, lo, hi, m, rc, rs);
+    return;
+  }
+  for (int e = tid; e < wb * wb; e += kChaseThreads)
+    Hg[(size_t)(e / wb) * n + e % wb] = sm[(e / wb) * ldh + e % wb];
+  __syncthreads();  // the window's shared memory now holds U
+  form_window_unitary(sm, tid, a, wb, tcur, t_end, lo, hi, m, rc, rs);
+  for (int e = tid; e < wb * wb; e += kChaseThreads) U[e] = sm[e];
 }
 
 // ---------------------------------------------------------------------------
 // slab products with the small unitary P (w x w, leading dimension ldp)
 // ---------------------------------------------------------------------------
 
-// X[a:a+w, c0:c1] <- P X[a:a+w, c0:c1]; a block owns kStrip columns.
-__global__ void __launch_bounds__(kGemmThreads)
-ms_apply_left(float2* __restrict__ X, int ldx, int a, int w, int c0, int c1,
-              const float2* __restrict__ P, int ldp) {
-  extern __shared__ float2 sm[];
-  float2* Xs = sm;                 // [w][kStrip]
-  float2* Ps = sm + w * kStrip;    // [kKT][w]: Ps[kk][i] = P[i, k0 + kk]
-  const int tid = threadIdx.x, tx = tid % kStrip, ty = tid / kStrip;
-  constexpr int kRowGroups = kGemmThreads / kStrip;       // 8
-  constexpr int kRows = kMaxW / kRowGroups;               // 32 per thread
-  const int cb = c0 + blockIdx.x * kStrip;
-  const int col = cb + tx;
-  for (int e = tid; e < w * kStrip; e += kGemmThreads) {
-    const int k = e / kStrip, j = e % kStrip;
-    Xs[e] = cb + j < c1 ? X[(size_t)(a + k) * ldx + cb + j]
-                        : c_make(0.f, 0.f);
-  }
-  float2 acc[kRows];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) acc[r] = c_make(0.f, 0.f);
-  for (int k0 = 0; k0 < w; k0 += kKT) {
-    __syncthreads();
-    for (int e = tid; e < w * kKT; e += kGemmThreads) {
-      const int i = e / kKT, kk = e % kKT;
-      Ps[kk * w + i] = k0 + kk < w ? P[(size_t)i * ldp + k0 + kk]
-                                   : c_make(0.f, 0.f);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kKT; ++kk) {
-      if (k0 + kk >= w) break;
-      const float2 xv = Xs[(k0 + kk) * kStrip + tx];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const int i = ty + kRowGroups * r;
-        if (i < w) acc[r] = c_add(acc[r], c_mul(Ps[kk * w + i], xv));
-      }
-    }
-  }
-  if (col < c1) {
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int i = ty + kRowGroups * r;
-      if (i < w) X[(size_t)(a + i) * ldx + col] = acc[r];
-    }
-  }
+// One in-place product with P over a range of strips:
+//   left:  X[a:a+w, lo:hi] <- P X[a:a+w, lo:hi], a block owns kSlabStrip
+//          columns;
+//   right: X[lo:hi, a:a+w] <- X[lo:hi, a:a+w] P^H, a block owns kSlabStrip
+//          rows.
+struct Slab {
+  float2* X;
+  int ldx, left, lo, hi;
+};
+
+constexpr int kSlabThreads = 256;
+constexpr int kSlabStrip = 32;                    // columns (rows) a block owns
+constexpr int kSlabLd = kSlabStrip + 1;           // of the staged strip
+constexpr int kSlabPer = 4;                       // strip entries a thread
+constexpr int kSlabTx = kSlabStrip / kSlabPer;    // 8
+constexpr int kSlabTy = kSlabThreads / kSlabTx;   // 32; P's rows ty + 32 r
+constexpr int kSlabKT = 16;                       // depth of a tile of P
+
+__device__ __forceinline__ void cp_async8(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
+               "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// X[r0:r1, a:a+w] <- X[r0:r1, a:a+w] P^H; a block owns kStrip rows.
-__global__ void __launch_bounds__(kGemmThreads)
-ms_apply_right(float2* __restrict__ X, int ldx, int r0, int r1, int a, int w,
+// Up to three slab products with one P in one launch, blocks [0, nb0) on
+// s0, the next nb1 on s1, the rest on s2.  A block stages its whole strip
+// (w x kSlabStrip, k-major) before it writes any of it, so the products
+// are in place; P comes in tiles of kSlabKT columns, double-buffered with
+// cp.async, zero past row w.  Thread (tx, ty) keeps a register tile of RT
+// rows i = ty + 32 r of P by kSlabPer strip entries j = tx + 8 c: each value
+// it loads from shared memory feeds RT or kSlabPer complex multiply-adds.
+// Every output sums over k in ascending order.
+template <int RT>
+__global__ void __launch_bounds__(kSlabThreads)
+ms_apply_slabs(Slab s0, Slab s1, Slab s2, int nb0, int nb1, int a, int w,
                const float2* __restrict__ P, int ldp) {
   extern __shared__ float2 sm[];
-  float2* Xs = sm;                 // [kStrip][w]
-  float2* Ps = sm + kStrip * w;    // [kKT][w]: Ps[kk][j] = conj(P[j, k0+kk])
-  const int tid = threadIdx.x, tx = tid % 32, ty = tid / 32;
-  constexpr int kRowsPer = kStrip / (kGemmThreads / 32);  // 4 rows per thread
-  constexpr int kCols = kMaxW / 32;                       // 8 columns
-  const int rb = r0 + blockIdx.x * kStrip;
-  for (int e = tid; e < kStrip * w; e += kGemmThreads) {
-    const int i = e / w, k = e % w;
-    Xs[e] = rb + i < r1 ? X[(size_t)(rb + i) * ldx + a + k]
-                        : c_make(0.f, 0.f);
+  constexpr int kRows = RT * kSlabTy;
+  float2* const Xs = sm;                          // Xs[k kSlabLd + j]
+  float2* const Pt = sm + (size_t)w * kSlabLd;    // [2][kSlabKT][kRows]
+  const int b0 = blockIdx.x;
+  const Slab sl = b0 < nb0 ? s0 : (b0 < nb0 + nb1 ? s1 : s2);
+  const int b = b0 < nb0 ? b0 : (b0 < nb0 + nb1 ? b0 - nb0 : b0 - nb0 - nb1);
+  const int tid = threadIdx.x, tx = tid % kSlabTx, ty = tid / kSlabTx;
+  const int j0 = sl.lo + b * kSlabStrip;
+  const int ntiles = (w + kSlabKT - 1) / kSlabKT;
+
+  // Pt[q][kk][i] = P[i, k0 + kk]
+  auto stage_p = [&](int tile) {
+    float2* dst = Pt + (tile & 1) * kSlabKT * kRows;
+    const int k0 = tile * kSlabKT;
+    for (int e = tid; e < kSlabKT * w; e += kSlabThreads) {
+      const int i = e / kSlabKT, kk = e % kSlabKT;
+      if (k0 + kk < w)
+        cp_async8(dst + kk * kRows + i, P + (size_t)i * ldp + k0 + kk);
+    }
+  };
+  for (int e = tid; e < 2 * kSlabKT * (kRows - w); e += kSlabThreads)
+    Pt[(e / (kRows - w)) * kRows + w + e % (kRows - w)] = c_make(0.f, 0.f);
+  for (int e = tid; e < w * kSlabStrip; e += kSlabThreads) {
+    // coalesced along the slab's rows: j fastest when left, k when right
+    const int k = sl.left ? e / kSlabStrip : e % w;
+    const int j = sl.left ? e % kSlabStrip : e / w;
+    float2* dst = Xs + k * kSlabLd + j;
+    if (j0 + j >= sl.hi)
+      *dst = c_make(0.f, 0.f);
+    else if (sl.left)
+      cp_async8(dst, sl.X + (size_t)(a + k) * sl.ldx + j0 + j);
+    else
+      cp_async8(dst, sl.X + (size_t)(j0 + j) * sl.ldx + a + k);
   }
-  float2 acc[kRowsPer][kCols];
+  stage_p(0);
+  cp_async_commit();
+
+  float2 acc[RT][kSlabPer];
 #pragma unroll
-  for (int q = 0; q < kRowsPer; ++q)
+  for (int r = 0; r < RT; ++r)
 #pragma unroll
-    for (int r = 0; r < kCols; ++r) acc[q][r] = c_make(0.f, 0.f);
-  for (int k0 = 0; k0 < w; k0 += kKT) {
-    __syncthreads();
-    for (int e = tid; e < w * kKT; e += kGemmThreads) {
-      const int j = e / kKT, kk = e % kKT;
-      float2 p = c_make(0.f, 0.f);
-      if (k0 + kk < w) p = P[(size_t)j * ldp + k0 + kk];
-      Ps[kk * w + j] = c_make(p.x, -p.y);
+    for (int c = 0; c < kSlabPer; ++c) acc[r][c] = c_make(0.f, 0.f);
+  for (int tile = 0; tile < ntiles; ++tile) {
+    if (tile + 1 < ntiles) {
+      stage_p(tile + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
+    const float2* pt = Pt + (tile & 1) * kSlabKT * kRows;
+    const int k0 = tile * kSlabKT;
 #pragma unroll
-    for (int kk = 0; kk < kKT; ++kk) {
+    for (int kk = 0; kk < kSlabKT; ++kk) {
       if (k0 + kk >= w) break;
-      float2 xq[kRowsPer];
+      float2 xv[kSlabPer], pv[RT];
 #pragma unroll
-      for (int q = 0; q < kRowsPer; ++q)
-        xq[q] = Xs[(ty * kRowsPer + q) * w + k0 + kk];
+      for (int c = 0; c < kSlabPer; ++c)
+        xv[c] = Xs[(k0 + kk) * kSlabLd + tx + kSlabTx * c];
 #pragma unroll
-      for (int r = 0; r < kCols; ++r) {
-        const int j = tx + 32 * r;
-        if (j < w) {
-          const float2 pj = Ps[kk * w + j];
+      for (int r = 0; r < RT; ++r) pv[r] = pt[kk * kRows + ty + kSlabTy * r];
+      if (sl.left) {
 #pragma unroll
-          for (int q = 0; q < kRowsPer; ++q)
-            acc[q][r] = c_add(acc[q][r], c_mul(xq[q], pj));
+        for (int r = 0; r < RT; ++r)
+#pragma unroll
+          for (int c = 0; c < kSlabPer; ++c)
+            acc[r][c] = c_add(acc[r][c], c_mul(pv[r], xv[c]));
+      } else {
+#pragma unroll
+        for (int r = 0; r < RT; ++r) {
+          const float2 pc = c_make(pv[r].x, -pv[r].y);
+#pragma unroll
+          for (int c = 0; c < kSlabPer; ++c)
+            acc[r][c] = c_add(acc[r][c], c_mul(xv[c], pc));
         }
       }
     }
+    __syncthreads();
   }
 #pragma unroll
-  for (int q = 0; q < kRowsPer; ++q) {
-    const int row = rb + ty * kRowsPer + q;
-    if (row >= r1) continue;
+  for (int r = 0; r < RT; ++r) {
+    const int i = ty + kSlabTy * r;
+    if (i >= w) continue;
 #pragma unroll
-    for (int r = 0; r < kCols; ++r) {
-      const int j = tx + 32 * r;
-      if (j < w) X[(size_t)row * ldx + a + j] = acc[q][r];
+    for (int c = 0; c < kSlabPer; ++c) {
+      const int j = j0 + tx + kSlabTx * c;
+      if (j >= sl.hi) continue;
+      if (sl.left)
+        sl.X[(size_t)(a + i) * sl.ldx + j] = acc[r][c];
+      else
+        sl.X[(size_t)j * sl.ldx + a + i] = acc[r][c];
     }
   }
 }
 
-size_t gemm_smem(int w) {
-  return ((size_t)w * kStrip + (size_t)kKT * w) * sizeof(float2);
+template <int RT>
+cudaError_t launch_slabs(const Slab* sl, const int* nb, int a, int w,
+                         const float2* P, int ldp, cudaStream_t stream) {
+  const size_t smem = ((size_t)w * kSlabLd + 2 * kSlabKT * RT * kSlabTy) *
+                      sizeof(float2);
+  cudaError_t err = set_smem(ms_apply_slabs<RT>, smem);
+  if (err != cudaSuccess) return err;
+  ms_apply_slabs<RT><<<nb[0] + nb[1] + nb[2], kSlabThreads, smem, stream>>>(
+      sl[0], sl[1], sl[2], nb[0], nb[1], a, w, P, ldp);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -426,41 +584,52 @@ extern "C" int torcwa_ms_chase_c64(void* H, int n, void* U, int a, int wb,
                                    void* stream) {
   if (m < 1 || m > kMaxM || wb < 1 || wb > kMaxW || a < 0 || a + wb > n)
     return (int)cudaErrorInvalidValue;
-  // the window fits the 227 KB of shared memory up to wb = 169
-  const size_t smem = (size_t)wb * (wb + 1) * sizeof(float2);
-  const int staged = smem <= kMaxChaseSmem;
-  if (staged) {
-    cudaError_t err = set_smem(ms_chase, smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  ms_chase<<<1, kChaseThreads, staged ? smem : 0, (cudaStream_t)stream>>>(
-      (float2*)H, n, (float2*)U, a, wb, tcur, t_end, lo, hi, m,
-      (const float2*)shifts, (float2*)xy, staged);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int torcwa_ms_apply_left_c64(void* X, int ldx, int a, int w, int c0,
-                                        int c1, const void* P, int ldp,
-                                        void* stream) {
-  if (w < 1 || w > kMaxW) return (int)cudaErrorInvalidValue;
-  if (c1 <= c0) return 0;
-  cudaError_t err = set_smem(ms_apply_left, gemm_smem(w));
+  // the recorded rotations always live in shared memory: at most (wb - 2)
+  // steps of m, 195 KB at wb = 256, m = 64; the window joins them there
+  // when both fit (wb = 128: 129 KB + at most 46 KB)
+  const size_t list = (size_t)max(t_end - tcur + 1, 0) * m *
+                      (sizeof(float2) + sizeof(float));
+  const size_t win = (size_t)wb * (wb + 1) * sizeof(float2);
+  if (list > kMaxChaseSmem) return (int)cudaErrorInvalidValue;
+  const bool staged = win + list <= kMaxChaseSmem;
+  const size_t smem = (staged ? win : 0) + list;
+  auto kernel = staged ? ms_chase<true> : ms_chase<false>;
+  cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  ms_apply_left<<<(c1 - c0 + kStrip - 1) / kStrip, kGemmThreads, gemm_smem(w),
-                  (cudaStream_t)stream>>>((float2*)X, ldx, a, w, c0, c1,
-                                          (const float2*)P, ldp);
+  kernel<<<1, kChaseThreads, smem, (cudaStream_t)stream>>>(
+      (float2*)H, n, (float2*)U, a, wb, tcur, t_end, lo, hi, m,
+      (const float2*)shifts, (float2*)xy);
   return (int)cudaGetLastError();
 }
 
-extern "C" int torcwa_ms_apply_right_c64(void* X, int ldx, int r0, int r1,
-                                         int a, int w, const void* P, int ldp,
+// Left on H's columns [cl0, cl1), right on H's rows [rh0, rh1) and on Z's
+// rows [rz0, rz1), one launch; an empty range adds no block.
+extern "C" int torcwa_ms_apply_slabs_c64(void* H, int ldh, void* Z, int ldz,
+                                         int a, int w, int cl0, int cl1,
+                                         int rh0, int rh1, int rz0, int rz1,
+                                         const void* P, int ldp,
                                          void* stream) {
   if (w < 1 || w > kMaxW) return (int)cudaErrorInvalidValue;
-  if (r1 <= r0) return 0;
-  cudaError_t err = set_smem(ms_apply_right, gemm_smem(w));
-  if (err != cudaSuccess) return (int)err;
-  ms_apply_right<<<(r1 - r0 + kStrip - 1) / kStrip, kGemmThreads,
-                   gemm_smem(w), (cudaStream_t)stream>>>(
-      (float2*)X, ldx, r0, r1, a, w, (const float2*)P, ldp);
-  return (int)cudaGetLastError();
+  const Slab sl[3] = {{(float2*)H, ldh, 1, cl0, cl1},
+                      {(float2*)H, ldh, 0, rh0, rh1},
+                      {(float2*)Z, ldz, 0, rz0, rz1}};
+  int nb[3];
+  for (int q = 0; q < 3; ++q)
+    nb[q] = max(sl[q].hi - sl[q].lo, 0) / kSlabStrip +
+            (max(sl[q].hi - sl[q].lo, 0) % kSlabStrip != 0);
+  if (nb[0] + nb[1] + nb[2] == 0) return 0;
+  const float2* Pc = (const float2*)P;
+  cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err;
+  switch ((w + kSlabTy - 1) / kSlabTy) {
+    case 1: err = launch_slabs<1>(sl, nb, a, w, Pc, ldp, st); break;
+    case 2: err = launch_slabs<2>(sl, nb, a, w, Pc, ldp, st); break;
+    case 3: err = launch_slabs<3>(sl, nb, a, w, Pc, ldp, st); break;
+    case 4: err = launch_slabs<4>(sl, nb, a, w, Pc, ldp, st); break;
+    case 5: err = launch_slabs<5>(sl, nb, a, w, Pc, ldp, st); break;
+    case 6: err = launch_slabs<6>(sl, nb, a, w, Pc, ldp, st); break;
+    case 7: err = launch_slabs<7>(sl, nb, a, w, Pc, ldp, st); break;
+    default: err = launch_slabs<8>(sl, nb, a, w, Pc, ldp, st); break;
+  }
+  return (int)err;
 }

@@ -156,7 +156,7 @@ def solve_stack_pair(spec, freq, inc_ang, azi_ang, eps_grids, thicknesses,
                      eig_backend='kernels', mu_grids=None, eps_scalars=None,
                      mu_scalars=None, mu_in=None, mu_out=None,
                      with_modes=False, avoid_pinv_instability=False,
-                     fold='unroll'):
+                     max_pinv_instability=0.005, fold='auto'):
     """Global S-matrix of a stack of patterned layers.
 
     Args:
@@ -169,6 +169,12 @@ def solve_stack_pair(spec, freq, inc_ang, azi_ang, eps_grids, thicknesses,
       thicknesses: [n_layers] real.
       eps_in / eps_out: complex cladding permittivities when
         spec.has_input / spec.has_output.
+      max_pinv_instability: read only with avoid_pinv_instability, which
+        is not ported yet; any value is accepted without it.
+      fold: 'auto' or 'unroll', both the unrolled Redheffer fold.  The
+        JAX package's 'auto' scans from 8 layers on; a scan folds the
+        same products in the same order, so the S-matrix is the same.
+        'scan' itself is not ported yet.
 
     Returns ([S11, S21, S12, S22], internals), each block (B, 2N, 2N).
     """
@@ -182,7 +188,7 @@ def solve_stack_pair(spec, freq, inc_ang, azi_ang, eps_grids, thicknesses,
         _not_ported('with_modes', 'fields.py and mode propagation')
     if avoid_pinv_instability:
         _not_ported('avoid_pinv_instability', 'class API Pinv fallback')
-    if fold != 'unroll':
+    if fold not in ('auto', 'unroll'):
         _not_ported(f'fold={fold!r}', 'scan fold over deep stacks')
     if spec.n_layers < 1:
         _not_ported('an empty stack', 'class API')
@@ -248,10 +254,15 @@ def _match(orders, order):
 
 def sparam_xy_pair(S, kx, ky, eps_in, eps_out, order, orders, ref_order,
                    polarization='xx', direction='forward',
-                   port='transmission', evanescent=1e-3):
+                   port='transmission', evanescent=1e-3, mu_in=None,
+                   mu_out=None):
     """Power-normalised xy S-parameter at the given orders (upstream
     rcwa.py S-parameter, power_norm=True).  kx, ky (..., N) real; the
-    result is complex (..., n_orders).  Non-finite values read as 0."""
+    result is complex (..., n_orders).  Non-finite values read as 0.
+    mu_in / mu_out (magnetic claddings) are not ported yet: only None."""
+    if mu_in is not None or mu_out is not None:
+        _not_ported('magnetic materials (mu_*)', 'class API and magnetic '
+                    'layers')
     N = (2 * order[0] + 1) * (2 * order[1] + 1)
     oi = _match(orders, order)
     ri = _match(np.asarray(ref_order).reshape(1, 2), order)

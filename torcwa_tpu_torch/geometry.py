@@ -5,7 +5,8 @@ level-set function on a cell-centred grid and squashes it through
 ``sigmoid(edge_sharpness * level)``; boolean ops act pointwise on the
 occupancy rasters (union = max, intersection = min, difference =
 min(A, 1 - B)).  Rasters are made on ``device``: the CUDA card unless the
-caller passes ``device='cpu'``.
+caller passes ``device='cpu'``; ``device=None`` (the JAX package's
+default) means the card too.
 """
 
 import torch
@@ -15,6 +16,10 @@ __all__ = ['geometry', 'rcwa_geo']
 
 def _as(x, like):
     return torch.as_tensor(x, dtype=like.dtype, device=like.device)
+
+
+def _device(device):
+    return torch.device('cuda' if device is None else device)
 
 
 def _grid(Lx, Ly, nx, ny, dtype, device):
@@ -51,7 +56,7 @@ class geometry:
         self.ny = ny
         self.edge_sharpness = edge_sharpness
         self.dtype = dtype
-        self.device = torch.device(device)
+        self.device = _device(device)
 
     def grid(self):
         self.x, self.y, self.x_grid, self.y_grid = _grid(
@@ -127,7 +132,7 @@ class rcwa_geo:
     def grid(cls):
         cls.x, cls.y, cls.x_grid, cls.y_grid = _grid(
             cls.Lx, cls.Ly, cls.nx, cls.ny, cls.dtype,
-            torch.device(cls.device))
+            _device(cls.device))
 
     @classmethod
     def circle(cls, R, Cx, Cy):

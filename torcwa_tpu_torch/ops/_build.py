@@ -45,8 +45,8 @@ _SIGNATURES = {
     'torcwa_ms_trailing_shifts_c64': [_P, _I, _P, _I, _I, _P, _P],
     'torcwa_ms_chase_c64': [_P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P,
                             _P],
-    'torcwa_ms_apply_left_c64': [_P, _I, _I, _I, _I, _I, _P, _I, _P],
-    'torcwa_ms_apply_right_c64': [_P, _I, _I, _I, _I, _I, _P, _I, _P],
+    'torcwa_ms_apply_slabs_c64': [_P, _I, _P, _I, _I, _I, _I, _I, _I, _I,
+                                  _I, _I, _P, _I, _P],
 }
 
 _lib = None

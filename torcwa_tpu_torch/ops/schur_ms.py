@@ -15,8 +15,11 @@ sweep loop runs here on the host, once for both versions:
 * the nibble rule skips the chase when AED alone deflated more than
   ``nibble`` percent of its window and the sweep is not exceptional;
 * otherwise ``m`` spacing-2 bulges are chased through overlapping windows
-  of ``wb`` rows, each window's accumulated unitary U then being applied
-  to the slabs right of and above the window and to Z;
+  of ``wb`` rows (:func:`chase_windows`); the chase rotates the window of H
+  and records its rotations, from which the window's unitary U is formed
+  after the last step (:func:`window_unitary_plain`, in the same launch on
+  the card), U then being applied to the slabs right of and above the
+  window and to Z;
 * 13 sweeps without progress make the next sweep exceptional.
 
 :class:`_CudaOps` launches the functions of ``csrc/schur_ms.cu`` and reads
@@ -34,9 +37,10 @@ from .eig_kernels import (LAUNCHES, _consts, _givens, _raise_on, _stream,
                           _wilkinson)
 
 __all__ = ['schur_ms', 'schur_ms_plain', 'run_sweeps', 'window',
-           'ms_apply_left', 'ms_apply_right', 'trailing_shifts_plain',
-           'band_scan_plain', 'chase_plain', 'aed_plain', 'AED_KW', 'NIBBLE',
-           'EXC_STALL']
+           'chase_windows', 'ms_chase', 'ms_apply_window',
+           'ms_apply_window_plain', 'trailing_shifts_plain',
+           'band_scan_plain', 'chase_plain', 'window_unitary_plain',
+           'aed_plain', 'AED_KW', 'NIBBLE', 'EXC_STALL']
 
 AED_KW = 64          # AED window (eig_qr_hbm._AED_KW)
 NIBBLE = 14          # percent of the window (eig_qr_hbm._NIBBLE)
@@ -65,6 +69,24 @@ def window(m):
 
 def max_sweeps(n, m, max_iter_factor=MAX_ITER_FACTOR):
     return (max_iter_factor * n) // m + 8 * m + 40
+
+
+def chase_windows(n, lo, hi, m, wb):
+    """The chase windows of one sweep on the active block [lo, hi], in
+    order: (a, wbe, tcur, t_end), the window's first row and its rows, the
+    first and last step chased in it.  Windows start at multiples of
+    ``ALIGN`` and advance by wb less the overlap m bulges need; the last
+    one reaches row n - 1 and ends the chase."""
+    t_final = hi - 1 + 2 * (m - 1)
+    a = (max(lo - 2 * (m - 1), 0) // ALIGN) * ALIGN
+    tcur = lo
+    while tcur <= t_final:
+        last = a + wb >= n
+        wbe = n - a if last else wb
+        t_end = t_final if last else min(a + wb - 3, t_final)
+        yield a, wbe, tcur, t_end
+        a += wb - _overlap(m)
+        tcur = t_end + 1
 
 
 # ---------------------------------------------------------------------------
@@ -149,7 +171,7 @@ def band_scan_plain(H, hi_top, mult):
 
 
 def chase_plain(H, shifts, xs, ys, a, wbe, tcur, t_end, lo, hi, U=None,
-                Z=None):
+                Z=None, rotations=None):
     """Steps tcur..t_end of the chase of m = len(shifts) spacing-2 bulges on
     the active block [lo, hi], inside the diagonal window of ``wbe`` rows at
     ``a`` (the whole matrix: a = 0, wbe = n), in place on H.  Bulge i sits at
@@ -157,8 +179,10 @@ def chase_plain(H, shifts, xs, ys, a, wbe, tcur, t_end, lo, hi, U=None,
     shifts[i], H[lo+1,lo]); (xs, ys) carry each bulge's next rotation source
     and are returned.  The left factors go to the rows of ``U`` (window
     coordinates) when given, the right factors to the columns of ``Z``
-    when given.  All row rotations of a step, then all column rotations;
-    a row rotation covers columns >= max(k - 1, lo) only."""
+    when given; ``rotations``, a list, gets each step's active (k, c, s)
+    appended, from which :func:`window_unitary_plain` forms the same U.
+    All row rotations of a step, then all column rotations; a row rotation
+    covers columns >= max(k - 1, lo) only."""
     m = shifts.shape[0]
     dev = H.device
     Hw = H[:, a:a + wbe]                 # the window's columns, all rows
@@ -176,6 +200,8 @@ def chase_plain(H, shifts, xs, ys, a, wbe, tcur, t_end, lo, hi, U=None,
         k = ks[act]
         c, s = _givens(xs[act], ys[act])
         c, s = c[:, None], s[:, None]
+        if rotations is not None:
+            rotations.append((k, c, s))
         # rows k, k+1: columns >= max(k-1, lo) of the window, and U
         hk, h1 = Hw[k], Hw[k + 1]
         on = idx >= torch.clamp(k - 1, min=lo)[:, None]
@@ -184,9 +210,7 @@ def chase_plain(H, shifts, xs, ys, a, wbe, tcur, t_end, lo, hi, U=None,
         n1 = torch.where(on, c * h1 - s.conj() * hk, h1)
         Hw[k + 1] = torch.where(zap, torch.zeros_like(n1), n1)
         if U is not None:
-            uk, u1 = U[k - a], U[k + 1 - a]
-            U[k - a] = c * uk + s * u1
-            U[k + 1 - a] = c * u1 - s.conj() * uk
+            _rotate_rows(U, k - a, c, s)
         # columns k, k+1: the window's rows up to min(k+2, hi)
         cl, cr = H[a:a + wbe, k].T, H[a:a + wbe, k + 1].T
         on = idx <= torch.clamp(k + 2, max=hi)[:, None]
@@ -201,6 +225,32 @@ def chase_plain(H, shifts, xs, ys, a, wbe, tcur, t_end, lo, hi, U=None,
         ys[act] = torch.where(k + 2 <= hi, H[k2, k],
                               torch.zeros_like(xs[act]))
     return xs, ys
+
+
+def _rotate_rows(U, r, c, s):
+    uk, u1 = U[r], U[r + 1]
+    U[r] = c * uk + s * u1
+    U[r + 1] = c * u1 - s.conj() * uk
+
+
+def window_unitary_plain(rotations, a, wbe, dtype, device):
+    """The window's accumulated unitary (wbe x wbe, window coordinates)
+    from the rotations :func:`chase_plain` recorded in a window at row
+    ``a``: the identity with each step's row rotations applied in order,
+    the same operations the chase applies when it carries U."""
+    U = torch.eye(wbe, dtype=dtype, device=device)
+    for k, c, s in rotations:
+        _rotate_rows(U, k - a, c, s)
+    return U
+
+
+def _chase_window_plain(H, shifts, xs, ys, a, wbe, tcur, t_end, lo, hi):
+    """The plain version of the ms_chase kernel: :func:`chase_plain` on H
+    recording its rotations, then U from them.  Returns (xs, ys, U)."""
+    rotations = []
+    xs, ys = chase_plain(H, shifts, xs, ys, a, wbe, tcur, t_end, lo, hi,
+                         rotations=rotations)
+    return xs, ys, window_unitary_plain(rotations, a, wbe, H.dtype, H.device)
 
 
 def trailing_shifts_plain(H, lo, hi, m, exc=False):
@@ -330,10 +380,7 @@ class _PlainOps:
         return lo, hi, s, kwe, hi_new
 
     def apply_aed(self, s, kwe):
-        H, Z, P, e = self.H, self.Z, self.Lp, s + kwe
-        H[s:e, e:] = P @ H[s:e, e:]
-        H[:s, s:e] = H[:s, s:e] @ P.mH
-        Z[:, s:e] = Z[:, s:e] @ P.mH
+        ms_apply_window_plain(self.H, self.Z, s, kwe, self.Lp)
 
     def start_chase(self):
         self.xs = torch.zeros(self.m, dtype=self.H.dtype, device=self.H.device)
@@ -346,16 +393,12 @@ class _PlainOps:
         return lo, hi, 0, 0, hi
 
     def chase(self, a, wbe, tcur, t_end, lo, hi):
-        H = self.H
-        self.U = torch.eye(wbe, dtype=H.dtype, device=H.device)
-        self.xs, self.ys = chase_plain(H, self.shifts, self.xs, self.ys, a,
-                                       wbe, tcur, t_end, lo, hi, U=self.U)
+        self.xs, self.ys, self.U = _chase_window_plain(
+            self.H, self.shifts, self.xs, self.ys, a, wbe, tcur, t_end, lo,
+            hi)
 
     def apply_window(self, a, wbe):
-        H, Z, U, e = self.H, self.Z, self.U, a + wbe
-        H[a:e, e:] = U @ H[a:e, e:]
-        H[:a, a:e] = H[:a, a:e] @ U.mH
-        Z[:, a:e] = Z[:, a:e] @ U.mH
+        ms_apply_window_plain(self.H, self.Z, a, wbe, self.U)
 
 
 # ---------------------------------------------------------------------------
@@ -368,7 +411,37 @@ def _launch(name, *args):
     LAUNCHES['schur_ms'] += 1
 
 
-def _check_slab(name, X, P):
+def ms_chase(H, shifts, xy, a, wbe, tcur, t_end, lo, hi, U):
+    """Steps tcur..t_end of the chase of m = len(shifts) bulges inside the
+    window of ``wbe`` rows at ``a``, in place on H; xy (2m,) holds the
+    bulges' carries (x then y) in and out, U (wbe, wbe) receives the
+    window's unitary.  A CUDA tensor goes through the kernel, which forms U
+    after the last step from the rotations it recorded; a CPU tensor
+    through :func:`chase_plain` and :func:`window_unitary_plain`."""
+    m = shifts.shape[0]
+    if H.device.type == 'cpu':
+        xs, ys, Uw = _chase_window_plain(H, shifts, xy[:m].clone(),
+                                         xy[m:].clone(), a, wbe, tcur, t_end,
+                                         lo, hi)
+        U.copy_(Uw)
+        xy[:m], xy[m:] = xs, ys
+        return H
+    if H.device.type != 'cuda':
+        raise RuntimeError(f'ms_chase: no kernel for device {H.device.type!r}')
+    if any(x.dtype != torch.complex64 for x in (H, shifts, xy, U)):
+        raise TypeError('ms_chase: the CUDA kernel takes complex64 only')
+    if not all(x.is_contiguous() and x.device == H.device
+               for x in (H, shifts, xy, U)) or U.shape != (wbe, wbe) \
+            or xy.shape != (2 * m,):
+        raise ValueError('ms_chase: expected contiguous H, shifts (m,), xy '
+                         '(2m,) and U (wbe, wbe) on one device')
+    _launch('torcwa_ms_chase_c64', H.data_ptr(), H.shape[-1], U.data_ptr(),
+            a, wbe, tcur, t_end, lo, hi, m, shifts.data_ptr(), xy.data_ptr())
+    return H
+
+
+def _check_slab(X, P):
+    name = 'ms_apply_window'
     if X.device.type != 'cuda':
         raise RuntimeError(f'{name}: no kernel for device {X.device.type!r}')
     if X.dtype != torch.complex64 or P.dtype != torch.complex64:
@@ -381,35 +454,38 @@ def _check_slab(name, X, P):
         raise ValueError(f'{name}: transform order {P.shape[0]} > {_MAX_WB}')
 
 
-def ms_apply_left(X, a, c0, c1, P):
-    """X[a:a+w, c0:c1] <- P X[a:a+w, c0:c1] in place, w = P.shape[0]: the
-    hand-written slab GEMM for a CUDA tensor, torch.matmul on the CPU."""
-    w = P.shape[0]
-    if X.device.type == 'cpu':
-        X[a:a + w, c0:c1] = P @ X[a:a + w, c0:c1]
-        return X
-    _check_slab('ms_apply_left', X, P)
-    if not (0 <= a and a + w <= X.shape[0] and 0 <= c0 and c1 <= X.shape[1]):
-        raise ValueError('ms_apply_left: slab out of range')
-    if c1 > c0:
-        _launch('torcwa_ms_apply_left_c64', X.data_ptr(), X.stride(0), a, w,
-                c0, c1, P.data_ptr(), P.stride(0))
-    return X
+def ms_apply_window_plain(H, Z, a, w, P):
+    """The three slab products of a window's (or an AED window's) unitary P
+    (w x w) at row a, in place: P H[a:a+w, a+w:], H[:a, a:a+w] P^H and
+    Z[:, a:a+w] P^H, in that order."""
+    e = a + w
+    H[a:e, e:] = P @ H[a:e, e:]
+    H[:a, a:e] = H[:a, a:e] @ P.mH
+    Z[:, a:e] = Z[:, a:e] @ P.mH
+    return H, Z
 
 
-def ms_apply_right(X, r0, r1, a, P):
-    """X[r0:r1, a:a+w] <- X[r0:r1, a:a+w] P^H in place."""
-    w = P.shape[0]
-    if X.device.type == 'cpu':
-        X[r0:r1, a:a + w] = X[r0:r1, a:a + w] @ P.mH
-        return X
-    _check_slab('ms_apply_right', X, P)
-    if not (0 <= r0 and r1 <= X.shape[0] and 0 <= a and a + w <= X.shape[1]):
-        raise ValueError('ms_apply_right: slab out of range')
-    if r1 > r0:
-        _launch('torcwa_ms_apply_right_c64', X.data_ptr(), X.stride(0), r0,
-                r1, a, w, P.data_ptr(), P.stride(0))
-    return X
+def ms_apply_window(H, Z, a, w, P):
+    """:func:`ms_apply_window_plain` as one launch of the register-tiled
+    slab kernel for CUDA tensors (the three products touch disjoint parts
+    of H and Z); the plain version on the CPU."""
+    if P.shape != (w, w):
+        raise ValueError(f'ms_apply_window: P must be {w} x {w}')
+    if H.device.type == 'cpu':
+        return ms_apply_window_plain(H, Z, a, w, P)
+    n = H.shape[-1]
+    for X in (H, Z):
+        _check_slab(X, P)
+    if H.shape != (n, n) or Z.shape[1] != n or Z.device != H.device \
+            or not 0 <= a <= n - w:
+        raise ValueError('ms_apply_window: expected H (n, n), Z (., n) and '
+                         'a window inside H')
+    if a + w < n or a > 0 or Z.shape[0] > 0:
+        # column range right of the window, row ranges of H above it and of Z
+        _launch('torcwa_ms_apply_slabs_c64', H.data_ptr(), H.stride(0),
+                Z.data_ptr(), Z.stride(0), a, w, a + w, n, 0, a, 0,
+                Z.shape[0], P.data_ptr(), P.stride(0))
+    return H, Z
 
 
 class _CudaOps:
@@ -452,24 +528,19 @@ class _CudaOps:
         return lo, hi, s, kwe, hi_new
 
     def apply_aed(self, s, kwe):
-        P, e, n = self.Lp[:kwe * kwe].view(kwe, kwe), s + kwe, self.n
-        ms_apply_left(self.H, s, e, n, P)
-        ms_apply_right(self.H, 0, s, s, P)
-        ms_apply_right(self.Z, 0, n, s, P)
+        ms_apply_window(self.H, self.Z, s, kwe,
+                        self.Lp[:kwe * kwe].view(kwe, kwe))
 
     def start_chase(self):
         self.xy.zero_()
 
     def chase(self, a, wbe, tcur, t_end, lo, hi):
-        _launch('torcwa_ms_chase_c64', self.H.data_ptr(), self.n,
-                self.U.data_ptr(), a, wbe, tcur, t_end, lo, hi, self.m,
-                self.shifts.data_ptr(), self.xy.data_ptr())
+        ms_chase(self.H, self.shifts, self.xy, a, wbe, tcur, t_end, lo, hi,
+                 self.U[:wbe * wbe].view(wbe, wbe))
 
     def apply_window(self, a, wbe):
-        P, e, n = self.U[:wbe * wbe].view(wbe, wbe), a + wbe, self.n
-        ms_apply_left(self.H, a, e, n, P)
-        ms_apply_right(self.H, 0, a, a, P)
-        ms_apply_right(self.Z, 0, n, a, P)
+        ms_apply_window(self.H, self.Z, a, wbe,
+                        self.U[:wbe * wbe].view(wbe, wbe))
 
 
 # ---------------------------------------------------------------------------
@@ -496,7 +567,6 @@ def _sweeps(ops, n, m, kw, wb, budget, nibble, aed=True):
     m x m block, nothing deflates beyond the band scan and every sweep
     chases."""
     scan = ops.scan_and_aed if aed else ops.scan_and_shifts
-    stride = wb - _overlap(m)
     hi_top, it, stall, aed_tot, skip_tot, flops, need = n - 1, 0, 0, 0, 0, 0, 0
     while hi_top > 0 and it < budget:
         exc = stall >= EXC_STALL
@@ -512,22 +582,14 @@ def _sweeps(ops, n, m, kw, wb, budget, nibble, aed=True):
             need += _CFMA * kwe * kwe * ((n - s - kwe) + s + n)
         nibbled = (hi_band - hi) * 100 > nibble * max(kwe, 1) and not exc
         if hi > lo and not nibbled:
-            t_final = hi - 1 + 2 * (m - 1)
-            a = (max(lo - 2 * (m - 1), 0) // ALIGN) * ALIGN
-            tcur = lo
             ops.start_chase()
             bulges = min(m, (hi - lo - 1) // 2 + 1)
             flops += _PAIR * 2 * wb * bulges * (hi - lo)
             need += _PAIR * 2 * n * bulges * (hi - lo)
-            while tcur <= t_final:
-                last = a + wb >= n
-                wbe = n - a if last else wb
-                t_end = t_final if last else min(a + wb - 3, t_final)
+            for a, wbe, tcur, t_end in chase_windows(n, lo, hi, m, wb):
                 ops.chase(a, wbe, tcur, t_end, lo, hi)
                 ops.apply_window(a, wbe)
                 flops += _CFMA * wbe * wbe * ((n - a - wbe) + a + n)
-                a += stride
-                tcur = t_end + 1
         stall = 0 if (hi < hi_top or exc) else stall + 1
         aed_tot += hi_band - hi
         skip_tot += int(nibbled)
