@@ -15,7 +15,11 @@ Phases (each prints its results; any failure exits non-zero):
   2. build: nvcc the kernels in torcwa_tpu_torch/csrc
   3. each small-route kernel against its plain PyTorch version on the card,
      on random complex64 matrices (B=2, n=48) and on the order-6 wave
-     matrices A = P Q (B=8, n=338) built by the port's own pq_pair
+     matrices A = P Q (B=8, n=338) built by the port's own pq_pair;
+     schur_qr's per-lane stats beside the per-rotation kernel's it replaced
+     (QR_STATS_PER_ROTATION); after a budget of sweeps on a random batch,
+     schur_qr element by element against the plain model of its windowed
+     schedule
   4. the large-route kernels against their plain versions: the multishift
      QR at n = 300 and 640, one sweep of chase windows at n = 640 against
      the plain float32 and float64 chases, the slab products, the blocked
@@ -31,7 +35,8 @@ Phases (each prints its results; any failure exits non-zero):
      against the complex128 oracle; then normal incidence (degenerate mode
      pairs): the multishift QR converges and the forward |t_xx|^2 agrees
      with the oracle
-  7. times with CUDA events; the two routes at n = 338, 450, 578 and 882
+  7. times with CUDA events (schur_qr beside the kernel it replaced); the
+     two routes at n = 338, 450, 578 and 882
   8. torch.profiler over one order-6 sweep and one order-20 solve: device
      time by kernel, idle share
   9. the stand-alone stages against their plain versions: schur_qr_v2 at
@@ -42,7 +47,8 @@ Phases (each prints its results; any failure exits non-zero):
      one wave matrix at n = 338, 450 and 578, then one order-(7, 7) solve,
      forward and raster gradient, with the small route's Schur stage swapped
      to schur_qr_ms, against the complex128 oracle
- 11. times of the stand-alone stages beside schur_qr and the two routes
+ 11. times of the stand-alone stages beside schur_qr and the two routes;
+     schur_qr and schur_qr_v2 beside the kernel they replaced
  12. schur_qr_baed and schur_qr_packed against their plain versions on
      random complex64 batches at (2, 96) and (8, 128), lanes of different
      kinds in one schur_qr_baed launch, the NaN contracts, what they refuse
@@ -142,6 +148,30 @@ MS_MS_PR5 = (60.1, 2540.5)
 # (of max|H|; for U absolute)
 CHASE_ROOM = 8
 CHASE_FLOOR = 1e-5
+
+# the per-rotation single-shift QR kernel that the windowed chase replaced
+# (commit dc04392, the parent of the redesign), on an NVIDIA H100 80GB HBM3
+# at 700 W: per-lane (hi, sweeps, rotations) on phase 3's order-6 wave
+# matrices, read through its C entry point by qr_compare.py.  Both kernels
+# apply the same rotations in the same order; the sweeps part where nvcc
+# fuses other products into FMAs (built with -fmad=false the two agree bit
+# for bit: PERF.md)
+QR_STATS_PER_ROTATION = {
+    'order-6 wave matrices': [[0, 456, 81592], [0, 413, 79382],
+                              [0, 443, 80332], [0, 430, 78394],
+                              [0, 430, 80431], [0, 419, 78495],
+                              [0, 426, 77716], [0, 422, 78131]],
+}
+# its times, ms, B = 8 (PERF.md: the final run of commit be561f7, whose
+# kernel dc04392 kept): the whole Schur form of the order-6 batch at 0
+# degrees (schur_qr, schur_qr_v2), and of the 10-degree batches at n = 338,
+# 450, 578 (phase 14)
+QR_MS_PER_ROTATION = {'schur_qr': 164.11, 'schur_qr_v2': 178.80,
+             338: 178.3, 450: 353.7, 578: 751.1}
+# sweeps of the budgeted element-wise check of schur_qr against the plain
+# model of its windowed schedule (random batch, B x n), and its lanes
+QR_MODEL_BUDGET = 2
+QR_MODEL_LANES = 4
 
 # NVIDIA H100 SXM data sheet: device memory rate and the IEEE float32 rate
 # outside the tensor cores (no TF32)
@@ -286,7 +316,7 @@ def kernel_checks(torch, ek, A, label, record, elementwise):
               'hessenberg kernel == plain element-wise: H within '
               '1e-4 ||A||_2, Q within 1e-4')
 
-    T, Z, (hi, sw) = ek.schur_qr(H, Q, return_stats=True)
+    T, Z, (hi, sw, rot) = ek.schur_qr(H, Q, return_stats=True)
     # the plain QR runs ~1e5 small launches (~100 s at B=8 n=338): it is
     # timed once, here, with CUDA events; the plain Hessenberg above has
     # warmed the same operators
@@ -298,6 +328,12 @@ def kernel_checks(torch, ek, A, label, record, elementwise):
     qr_plain_ms = ev[0].elapsed_time(ev[1])
     print(f'  plain schur_qr {qr_plain_ms / 1e3:.2f} s')
     print(f'  sweeps kernel {sw.tolist()} plain {swp.tolist()}')
+    st = [list(x) for x in zip(hi.tolist(), sw.tolist(), rot.tolist())]
+    ref = QR_STATS_PER_ROTATION.get(label)
+    print(f'  schur_qr per-lane (hi, sweeps, rotations) {st}'
+          + ('' if ref is None else '; the same as the per-rotation kernel '
+             'it replaced' if st == ref else
+             f'; the per-rotation kernel it replaced: {ref}'))
     check(bool((hi == 0).all()), 'schur_qr: every lane converged')
     w = torch.diagonal(T, dim1=-2, dim2=-1)
     w_ref = torch.linalg.eigvals(H.to(torch.complex128))
@@ -1273,6 +1309,51 @@ def alt_path(torch, tp, ek, dev, A6, H6, Q6, eps32, out):
           f'{cos_k:.6f} >= 0.99')
 
 
+def qr_window_check(torch, ek, dev):
+    """schur_qr after QR_MODEL_BUDGET sweeps on a random (QR_MODEL_LANES,
+    338) batch (n = 338 is no multiple of the chase window's step, 30)
+    against the plain model of its windowed schedule
+    (``eig_kernels._single_shift_sweeps(..., window=WINDOW)``) on the same
+    H, Q.  Each must hold a unitary Hessenberg similarity with T
+    (partial_state; the kernel's unfinished lanes have a NaN diagonal by
+    contract); element by element T's strict upper part within 1e-4
+    ||A||_2 and Z within 1e-4 (float32, the Givens rotations formed under
+    other contractions, as phase 14 holds the batched stages after one
+    sweep); the stats equal (nothing deflates in two sweeps of a random
+    matrix).  Returns max|T - T_model| / ||A||_2."""
+    n, B, w = 338, QR_MODEL_LANES, ek.WINDOW
+    A = torch.stack([rand_c64(torch, n, 200 + b, dev) for b in range(B)])
+    H, Q = ek.hessenberg(A)
+    w_ref = torch.linalg.eigvals(A.to(torch.complex128))
+    a2 = float(torch.linalg.matrix_norm(A, ord=2).min())
+    T, Z, st = ek.schur_qr(H, Q, max_iters=QR_MODEL_BUDGET, return_stats=True)
+    t0 = time.perf_counter()
+    Tp, Zp, *stp = ek._single_shift_sweeps(H, Q, QR_MODEL_BUDGET,
+                                           **ek.ACC_RULES, window=w)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    pk = partial_state(torch, A, w_ref, T, Z, st[0], poisoned=True)
+    pp = partial_state(torch, A, w_ref, Tp, Zp, stp[0])
+    dT = float((torch.triu(T, 1) - torch.triu(Tp, 1)).abs().max())
+    dZ = float((Z - Zp).abs().max())
+    same = [a.tolist() for a in st] == [b.tolist() for b in stp]
+    print(f'  schur_qr (window {w}), {QR_MODEL_BUDGET} sweeps on a random '
+          f'batch B={B} n={n}: max|T - T_model| = {dT:.3e} ({dT / a2:.2e} '
+          f'||A||_2), max|Z - Z_model| = {dZ:.3e}; (hi, sweeps, rotations) '
+          f'kernel {[a.tolist() for a in st]} model '
+          f'{[b.tolist() for b in stp]}; (below the subdiagonal, upper '
+          f'triangle against T, unitarity of Z) kernel ({pk[0]:.2e}, '
+          f'{pk[1]:.2e}, {pk[2]:.2e}) model ({pp[0]:.2e}, {pp[1]:.2e}, '
+          f'{pp[2]:.2e}); model {secs:.1f} s')
+    check(max(pk[:3]) <= 1e-5 and max(pp[:3]) <= 1e-5,
+          f'schur_qr, {QR_MODEL_BUDGET} sweeps: kernel and model each keep a '
+          'unitary Hessenberg similarity (1e-5)')
+    check(dT <= 1e-4 * a2 and dZ <= 1e-4 and same,
+          f'schur_qr == the model of its schedule after {QR_MODEL_BUDGET} '
+          'sweeps: T within 1e-4 ||A||_2, Z within 1e-4, the same stats')
+    return dT / a2
+
+
 def alt_times(torch, ek, smi, H6, Q6, out, times, bounds):
     """Phase 11: the stand-alone stages beside schur_qr and the routes."""
     from torcwa_tpu_torch.ops import (eig_qr as eq, schur_ms as sm,
@@ -1280,6 +1361,11 @@ def alt_times(torch, ek, smi, H6, Q6, out, times, bounds):
     B6, n6 = H6.shape[0], H6.shape[-1]
     t_qr = cuda_ms(torch, lambda: ek.schur_qr(H6, Q6), reps=3)
     t_v2 = cuda_ms(torch, lambda: ek.schur_qr_v2(H6, Q6), reps=3)
+    old = QR_MS_PER_ROTATION
+    print(f'  the (8, 338, 338) order-6 batch at 0 deg: schur_qr {t_qr:.2f} '
+          f'ms, schur_qr_v2 {t_v2:.2f} ms; the per-rotation kernel they '
+          f'replaced {old["schur_qr"]} and {old["schur_qr_v2"]} ms '
+          f'(PERF.md) [{smi}]')
     full_v2 = bound(4 * B6 * n6 * n6 * C64, out['v2_rot'] * 2 * n6 * 20)
     print(f'  the (8, 338, 338) order-6 batch, whole Schur form: schur_qr_v2 '
           f'{t_v2:.3f} ms (bound {full_v2[0]:.4f} ms by {full_v2[1]}, '
@@ -1582,6 +1668,10 @@ def batched_alt_times(torch, tp, ek, smi, eps32, out, times, bounds):
         A, H, Q = rec['A'], rec['H'], rec['Q']
         B = A.shape[0]
         t_qr = cuda_ms(torch, lambda: ek.schur_qr(H, Q), reps=3)
+        t_v2 = cuda_ms(torch, lambda: ek.schur_qr_v2(H, Q), reps=3)
+        print(f'    B = {B}, n = {n}: schur_qr {t_qr:.2f} ms, schur_qr_v2 '
+              f'{t_v2:.2f} ms; the per-rotation schur_qr they replaced '
+              f'{QR_MS_PER_ROTATION[n]} ms (PERF.md) [{smi}]')
         t_pk = cuda_ms(torch, lambda: sp.schur_qr_packed(H, Q), reps=3)
         t_b8 = cuda_ms(torch, lambda: sb.schur_qr_baed(H, Q), reps=3)
         t_b16 = cuda_ms(torch, lambda: baed16(H, Q), reps=3)
@@ -1803,7 +1893,8 @@ def main():
     check(rec_rand['ey'] <= 1e-4 and rec_rand['vec'] <= 1e-4,
           'tri_vectors kernel == plain: Y and V within 1e-4 relative')
     H, Q = ek.hessenberg(A_rand)
-    T1, _, (hi1, _) = ek.schur_qr(H, Q, max_iter_factor=1, return_stats=True)
+    T1, _, (hi1, _, _) = ek.schur_qr(H, Q, max_iter_factor=1,
+                                     return_stats=True)
     d1 = torch.diagonal(T1, dim1=-2, dim2=-1)
     check(bool((hi1 > 0).all()) and bool(torch.isnan(d1).all()),
           'max_iter_factor=1 forces non-convergence: NaN eigenvalues')
@@ -1815,6 +1906,7 @@ def main():
           'tri_vectors kernel == plain within 1e-4 on separated columns')
     check(rec_main['r_k'] <= 10 * rec_main['r_p'] + 1e-6,
           'tri_vectors kernel eigen-residual on par with the plain version')
+    qr_model_err = qr_window_check(torch, ek, dev)
 
     phase('4. large-route kernels against their plain versions')
     large_kernel_checks(torch, ek, dev)
@@ -1874,6 +1966,8 @@ def main():
     times['schur_qr'] = (cuda_ms(torch, lambda: ek.schur_qr(H6, Q6)),
                          rec_main['qr_plain_ms'],
                          'B=8 n=338; plain: one run, in phase 3')
+    print(f'  schur_qr {times["schur_qr"][0]:.3f} ms; the per-rotation kernel '
+          f'it replaced {QR_MS_PER_ROTATION["schur_qr"]} ms (PERF.md) [{smi}]')
     # H, Q read, T, Z written; this run's sweeps per lane, a sweep chasing
     # a window that shrinks from n to 0 (n/2 rotations on average), a
     # rotation updating ~2n element pairs (rows of H, columns of H and Z)
@@ -2040,6 +2134,8 @@ def main():
                 'plain_ms': times[k][1], 'bound_ms': bounds[k][0],
                 'bound_by': bounds[k][1], 'library_ms': None}
                for k in REPLACES]
+    kernels[list(REPLACES).index('schur_qr')].update(
+        model_max_rel_err=qr_model_err)
     kernels[list(REPLACES).index('schur_ms')].update(
         work='the first two sweeps at n = 3362', full_ms=ms_ms,
         full_bound_ms=full_bound[0], full_bound_by=full_bound[1],

@@ -68,8 +68,8 @@ def test_schur_qr_kernel_matches_plain(dev):
     # 1e-5, sweep counts within 30%
     A = _rand(dev, 1)
     H, Q = ek.hessenberg_plain(A)
-    T, Z, (hi, sw) = _launch('schur_qr', ek.schur_qr, H, Q,
-                             return_stats=True)
+    T, Z, (hi, sw, _) = _launch('schur_qr', ek.schur_qr, H, Q,
+                                return_stats=True)
     Tp, _, hip, swp = ek.schur_qr_plain(H, Q)
     assert bool((hi == 0).all()) and bool((hip == 0).all())
     w = torch.diagonal(T, dim1=-2, dim2=-1)[..., :, None]
@@ -86,10 +86,58 @@ def test_schur_qr_kernel_poisons_nonconverged_lanes(dev):
     # a budget of one sweep per row cannot converge: NaN eigenvalues
     A = _rand(dev, 2)
     H, Q = ek.hessenberg_plain(A)
-    T, _, (hi, _) = _launch('schur_qr', ek.schur_qr, H, Q, max_iter_factor=1,
-                            return_stats=True)
+    T, _, (hi, _, _) = _launch('schur_qr', ek.schur_qr, H, Q,
+                               max_iter_factor=1, return_stats=True)
     assert bool((hi > 0).all())
     assert bool(torch.isnan(torch.diagonal(T, dim1=-2, dim2=-1)).all())
+
+
+def _window_case(dev, case):
+    """n below the chase window's 32 rows; n = 33 (two windows); three
+    lanes, one of them upper triangular, converged before its first
+    sweep."""
+    if case == 'n < w':
+        return _rand(dev, 7, 20)
+    if case == 'n = w + 1':
+        return _rand(dev, 8, ek.WINDOW + 1)
+    rng = np.random.default_rng(9)
+    a = rng.standard_normal((3, N, N)) + 1j * rng.standard_normal((3, N, N))
+    a[2] = np.triu(a[2])
+    return torch.as_tensor(a.astype(np.complex64), device=dev)
+
+
+@pytest.mark.parametrize('entry', ['schur_qr', 'schur_qr_v2'])
+@pytest.mark.parametrize('case', ['n < w', 'n = w + 1', 'a lane converged'])
+def test_schur_qr_windows_match_the_schedule_model(dev, case, entry):
+    # two sweeps, where nothing deflates on a random matrix yet: the kernel
+    # against the plain model of its schedule element by element (T's strict
+    # upper part, whose diagonal is NaN-poisoned through schur_qr, within
+    # 1e-4 ||A||_2; Z within 1e-4: float32, the Givens rotations formed under
+    # other contractions), the stats equal; then the whole Schur form
+    A = _window_case(dev, case)
+    H, Q = ek.hessenberg_plain(A)
+    fn = getattr(ek, entry)
+    rules = ek.ACC_RULES if entry == 'schur_qr' else ek.V2_RULES
+    T, Z, st = _launch(entry, fn, H, Q, max_iters=2, return_stats=True)
+    Tp, Zp, *stp = ek._single_shift_sweeps(H, Q, 2, **rules,
+                                           window=ek.WINDOW)
+    for a, b in zip(st, stp):
+        assert a.tolist() == b.tolist()
+    a2 = float(torch.linalg.matrix_norm(A, ord=2).min())
+    assert float((torch.triu(T, 1) - torch.triu(Tp, 1)).abs().max()) \
+        <= 1e-4 * a2
+    assert float((Z - Zp).abs().max()) <= 1e-4
+    if case == 'a lane converged':
+        assert st[1][2] == 1 and st[2][2] == 0
+        assert torch.equal(T[2], torch.triu(H[2])) and torch.equal(Z[2], Q[2])
+    T, Z, (hi, sw, rot) = _launch(entry, fn, H, Q, return_stats=True)
+    assert bool((hi == 0).all())
+    w_ref = torch.linalg.eigvals(A.to(torch.complex128))
+    for b in range(A.shape[0]):
+        assert _sets_agree(torch.diagonal(T[b]).to(torch.complex128),
+                           w_ref[b])
+    res = torch.linalg.matrix_norm(Z @ T @ Z.mH - A) / torch.linalg.matrix_norm(A)
+    assert float(res.max()) <= 1e-5
 
 
 def test_tri_vectors_kernel_matches_plain(dev):

@@ -72,7 +72,7 @@ def test_schur_qr_plain_matches_pallas(n):
     H, Q = _pallas_hess(A)
     Tr, Ti, Zr, Zi, (hi_ref, sw_ref) = schur_qr_pallas_acc(
         *_pair(H), *_pair(Q), interpret=True, return_stats=True)
-    T, Z, (hi, sweeps) = ek.schur_qr(_t(H), _t(Q), return_stats=True)
+    T, Z, (hi, sweeps, _) = ek.schur_qr(_t(H), _t(Q), return_stats=True)
     T_ref = _np((Tr, Ti))
     # same convergence flags (0 == converged)
     assert (hi.numpy() == 0).tolist() == (np.asarray(hi_ref) == 0).tolist()
@@ -102,8 +102,8 @@ def test_schur_qr_nonconvergence_poisons_with_nan():
     Tr, _, _, _, (hi_ref, _) = schur_qr_pallas_acc(
         *_pair(H), *_pair(Q), max_iter_factor=0, interpret=True,
         return_stats=True)
-    T, _, (hi, sweeps) = ek.schur_qr(_t(H), _t(Q), max_iter_factor=0,
-                                     return_stats=True)
+    T, _, (hi, sweeps, _) = ek.schur_qr(_t(H), _t(Q), max_iter_factor=0,
+                                        return_stats=True)
     assert (np.asarray(hi_ref) > 0).all() and (hi.numpy() > 0).all()
     assert int(sweeps.max()) == 0
     assert np.isnan(np.diagonal(np.asarray(Tr), axis1=1, axis2=2)).all()

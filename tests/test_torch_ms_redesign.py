@@ -299,3 +299,71 @@ def test_device_none_means_the_card(monkeypatch):
         monkeypatch.setattr(tp.rcwa_geo, k, None, raising=False)
     tp.rcwa_geo.grid()
     assert tp.rcwa_geo.x_grid.device == torch.device('cpu')
+
+
+# ---------------------------------------------------------------------------
+# the empty stack and internals['mu_conv'] against the JAX package
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize('inc_deg', [0., 30.])
+@pytest.mark.parametrize('order', [(1, 1), (2, 2)])
+@pytest.mark.parametrize('claddings', ['output', 'both'])
+def test_empty_stack_is_the_claddings_alone(claddings, order, inc_deg):
+    # no layer: the JAX package folds the claddings into the identity
+    # S-matrix (Example 0 has an output cladding only).  float64; the same
+    # interface products in the same order, so the S-blocks agree to 1e-12
+    has_in = claddings == 'both'
+    spec = jf.StackSpec(order=order, L=L, n_layers=0, has_input=has_in,
+                        has_output=True)
+    e_in, e_out = (1.46 ** 2, 0.), (1.2, 0.01)
+    grids = np.zeros((0, 16, 16))
+    kw = dict(eps_out=tuple(map(jnp.asarray, e_out)))
+    if has_in:
+        kw['eps_in'] = tuple(map(jnp.asarray, e_in))
+    inc = np.radians(inc_deg)
+    S_ref, intr_ref = jf.solve_stack_pair(
+        spec, jnp.asarray(1 / 530.), jnp.asarray(inc), jnp.asarray(0.3),
+        (jnp.asarray(grids), jnp.asarray(grids)), jnp.zeros(0),
+        eps_scalars=(jnp.zeros(0), jnp.zeros(0)), **kw)
+    cv = convert.from_jax_pairs(eps_grids=(grids, grids), thicknesses=[],
+                                eps_in=e_in if has_in else None,
+                                eps_out=e_out, spec=spec, device='cpu')
+    S, intr = tp.solve_stack_pair(cv['spec'], 1 / 530., inc, 0.3,
+                                  cv['eps_grids'], cv['thicknesses'],
+                                  eps_in=cv.get('eps_in'),
+                                  eps_out=cv['eps_out'])
+    for blk, (r, i) in zip(S, S_ref):
+        ref = np.asarray(r) + 1j * np.asarray(i)
+        assert blk.dtype == torch.complex128
+        assert blk.shape == ref.shape
+        assert np.abs(blk.numpy() - ref).max() <= 1e-12 * np.abs(ref).max()
+    assert set(intr) == set(intr_ref)
+    assert not {'kz', 'E', 'H', 'conv', 'mu_conv'} & set(intr)
+    # with no grid the claddings give dtype and device
+    S2, _ = tp.solve_stack_pair(cv['spec'], 1 / 530., inc, 0.3, None, [],
+                                eps_in=cv.get('eps_in'),
+                                eps_out=cv['eps_out'])
+    for a, b in zip(S, S2):
+        assert torch.equal(a, b)
+
+
+def test_internals_carry_mu_conv_as_the_jax_package_does():
+    # mu = 1 in every layer: the identity, (n_layers, N, N), complex
+    spec, eps, thick = _stack((2, 2), 2, 5)
+    e_in, e_out = (1.46 ** 2, 0.), (1.2, 0.01)
+    _, intr_ref = jf.solve_stack_pair(
+        spec, jnp.asarray(1 / 530.), jnp.asarray(0.1), jnp.asarray(0.3),
+        (jnp.asarray(eps), jnp.zeros(eps.shape)), jnp.asarray(thick),
+        eps_in=tuple(map(jnp.asarray, e_in)),
+        eps_out=tuple(map(jnp.asarray, e_out)))
+    cv = convert.from_jax_pairs(eps_grids=(eps, np.zeros_like(eps)),
+                                thicknesses=thick, eps_in=e_in,
+                                eps_out=e_out, spec=spec, device='cpu')
+    _, intr = tp.solve_stack_pair(cv['spec'], 1 / 530., 0.1, 0.3,
+                                  cv['eps_grids'], cv['thicknesses'],
+                                  eps_in=cv['eps_in'], eps_out=cv['eps_out'])
+    ref = (np.asarray(intr_ref['mu_conv'][0])
+           + 1j * np.asarray(intr_ref['mu_conv'][1]))
+    assert intr['mu_conv'].dtype == intr['conv'].dtype
+    assert intr['mu_conv'].shape == ref.shape == intr['conv'].shape
+    assert np.array_equal(intr['mu_conv'].numpy(), ref)

@@ -146,6 +146,22 @@ __device__ __forceinline__ float2 wilkinson(float2 a, float2 b, float2 c,
   return e1 < e2 ? c_make(l1r, l1i) : c_make(l2r, l2i);
 }
 
+// One 8-byte copy from device to shared memory that does not pass through
+// registers (cp.async, cached in L1); a group is closed by cp_async_commit
+// and awaited, all but the newest N groups, by cp_async_wait<N>.
+__device__ __forceinline__ void cp_async8(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
+               "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
 // Allow more than 48 KB of dynamic shared memory when a size needs it.
 template <typename K>
 static cudaError_t set_smem(K kernel, size_t bytes) {

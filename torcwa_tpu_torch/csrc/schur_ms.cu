@@ -407,19 +407,6 @@ constexpr int kSlabTx = kSlabStrip / kSlabPer;    // 8
 constexpr int kSlabTy = kSlabThreads / kSlabTx;   // 32; P's rows ty + 32 r
 constexpr int kSlabKT = 16;                       // depth of a tile of P
 
-__device__ __forceinline__ void cp_async8(void* smem, const void* gmem) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
-               "l"(gmem));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 // Up to three slab products with one P in one launch, blocks [0, nb0) on
 // s0, the next nb1 on s1, the rest on s2.  A block stages its whole strip
 // (w x kSlabStrip, k-major) before it writes any of it, so the products

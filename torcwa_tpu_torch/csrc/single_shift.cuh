@@ -42,14 +42,29 @@ struct SweepPlan {
   int hi0;  // the window bottom after this sweep's deflation scan
 };
 
+// The largest i < from with (alive[i] != 0) == want, or -1: 32 flags a
+// step down from `from`, by the calling warp (the result is warp-uniform).
+__device__ __forceinline__ int last_flag(const unsigned char* alive, int from,
+                                         bool want) {
+  const int lane = threadIdx.x & 31;
+  for (int base = from - 32; base > -32; base -= 32) {
+    const int i = base + lane;
+    const unsigned hit =
+        __ballot_sync(0xffffffffu, i >= 0 && (alive[i] != 0) == want);
+    if (hit) return base + 31 - __clz(hit);
+  }
+  return -1;
+}
+
 // Start of sweep `it` on the window [0, hi]: all threads compute the
-// deflation flags alive[c] (subdiagonal c+1, c) on the live prefix, thread 0
-// walks them for the new window bottom, up to R::kRuns alive runs and their
+// deflation flags alive[c] (subdiagonal c+1, c) on the live prefix, warp 0
+// scans them for the new window bottom, up to R::kRuns alive runs and their
 // Wilkinson shifts (the bottom run takes the exceptional shift d + 0.75 |sub|
 // every kExcEvery-th sweep; an exactly real discriminant takes the complex
 // branch only after R::kCplxStall sweeps without progress).  `stall` and
-// `rot` (rotations this lane will have applied) are thread 0's.  Contains
-// barriers: call from all threads; the plan is complete on return.
+// `rot` (rotations this lane will have applied) are warp 0's, the same in
+// each of its lanes.  Contains barriers: call from all threads; the plan is
+// complete on return.
 template <typename R, typename At>
 __device__ __forceinline__ void plan_sweep(At at, int hi, int it, int& stall,
                                            int& rot, unsigned char* alive,
@@ -63,21 +78,15 @@ __device__ __forceinline__ void plan_sweep(At at, int hi, int it, int& stall,
     alive[c] = c_abs2(at(c + 1, c)) > th * th;
   }
   __syncthreads();
-  if (tid == 0) {
-    int h = hi;
-    while (h > 0 && !alive[h - 1]) --h;
+  if (tid < 32) {
+    const int h = last_flag(alive, hi, true) + 1;
     stall = h < hi ? 0 : stall + 1;
-    plan.hi0 = h;
+    if (tid == 0) plan.hi0 = h;
     int nr = 0, top = h;
     for (int r = 0; r < R::kRuns; ++r) {
-      int hr = top;
-      if (r > 0) {
-        hr = top - 1;
-        while (hr > 0 && !alive[hr - 1]) --hr;
-      }
+      const int hr = r > 0 ? last_flag(alive, top - 1, true) + 1 : top;
       if (hr <= 0) break;
-      int lo = hr;
-      while (lo > 0 && alive[lo - 1]) --lo;
+      const int lo = last_flag(alive, hr, false) + 1;
       const float2 a = at(hr - 1, hr - 1);
       const float2 b = at(hr - 1, hr);
       const float2 c = at(hr, hr - 1);
@@ -85,14 +94,16 @@ __device__ __forceinline__ void plan_sweep(At at, int hi, int it, int& stall,
       float2 sh = wilkinson(a, b, c, d, stall >= R::kCplxStall);
       if (r == 0 && (it % kExcEvery) == kExcEvery - 1)
         sh = c_make(d.x + 0.75f * sqrtf(c_abs2(c)), d.y);
-      plan.lo[nr] = lo;
-      plan.hi[nr] = hr;
-      plan.shift[nr] = sh;
+      if (tid == 0) {
+        plan.lo[nr] = lo;
+        plan.hi[nr] = hr;
+        plan.shift[nr] = sh;
+      }
       rot += hr - lo;
       ++nr;
       top = lo;
     }
-    plan.nr = nr;
+    if (tid == 0) plan.nr = nr;
   }
   __syncthreads();
 }

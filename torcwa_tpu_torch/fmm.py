@@ -165,7 +165,9 @@ def solve_stack_pair(spec, freq, inc_ang, azi_ang, eps_grids, thicknesses,
         leading B dimension when it is a tensor with one.
       inc_ang, azi_ang: real scalars (radians).
       eps_grids: [n_layers, nx, ny] permittivity rasters (real or complex),
-        in stack order; the device and precision of the solve.
+        in stack order; the device and precision of the solve.  With no
+        layer it may be (0, nx, ny) or None, and then the claddings give
+        them; the S-matrix is the claddings' alone.
       thicknesses: [n_layers] real.
       eps_in / eps_out: complex cladding permittivities when
         spec.has_input / spec.has_output.
@@ -190,11 +192,10 @@ def solve_stack_pair(spec, freq, inc_ang, azi_ang, eps_grids, thicknesses,
         _not_ported('avoid_pinv_instability', 'class API Pinv fallback')
     if fold not in ('auto', 'unroll'):
         _not_ported(f'fold={fold!r}', 'scan fold over deep stacks')
-    if spec.n_layers < 1:
-        _not_ported('an empty stack', 'class API')
     pin_f32_precision()
 
-    grids = torch.as_tensor(eps_grids)
+    grids = torch.as_tensor(eps_grids if eps_grids is not None else
+                            eps_in if spec.has_input else eps_out)
     cdt = grids.dtype if grids.is_complex() else complex_dtype_of(grids.dtype)
     rdt = real_dtype_of(cdt)
     dev = grids.device
@@ -215,17 +216,24 @@ def solve_stack_pair(spec, freq, inc_ang, azi_ang, eps_grids, thicknesses,
     Vf = vmat(kx, ky, kz_f)
     Vf_inv = bdp_inv(Vf)
 
-    conv = material_conv(grids, order, cdt)                 # (L, N, N)
-    S11s, S21s, kz, E, H = _layer_smatrix_body(
-        conv[:, None], kx, ky, Vf_inv, omega, thicknesses[:, None],
-        broadening, eig_backend)
-
-    S = [S11s[0], S21s[0], S21s[0], S11s[0]]
-    for i in range(1, spec.n_layers):
-        S = redheffer_pair(S, [S11s[i], S21s[i], S21s[i], S11s[i]])
-
-    internals = dict(kx=kx, ky=ky, kz_f=kz_f, Vf=Vf, kz=kz, E=E, H=H,
-                     conv=conv)
+    internals = dict(kx=kx, ky=ky, kz_f=kz_f, Vf=Vf)
+    if spec.n_layers:
+        conv = material_conv(grids, order, cdt)             # (L, N, N)
+        S11s, S21s, kz, E, H = _layer_smatrix_body(
+            conv[:, None], kx, ky, Vf_inv, omega, thicknesses[:, None],
+            broadening, eig_backend)
+        S = [S11s[0], S21s[0], S21s[0], S11s[0]]
+        for i in range(1, spec.n_layers):
+            S = redheffer_pair(S, [S11s[i], S21s[i], S21s[i], S11s[i]])
+        # mu = 1 in every layer: the identity, as the JAX package reports it
+        eye = torch.eye(conv.shape[-1], dtype=cdt, device=dev)
+        internals.update(kz=kz, E=E, H=H, conv=conv,
+                         mu_conv=eye.expand(conv.shape))
+    else:
+        # no layer: the identity S-matrix (the JAX package's empty fold)
+        eye = torch.eye(2 * kx.shape[-1], dtype=cdt,
+                        device=dev).repeat(kx.shape[0], 1, 1)
+        S = [eye, torch.zeros_like(eye), torch.zeros_like(eye), eye.clone()]
     if spec.has_input:
         Vi = vmat(kx, ky, kz_conj_branch(eps_in, kx, ky))
         internals['Vi'] = Vi

@@ -38,9 +38,13 @@ NRUNS = 4
 DEFL_MULT = 4.0
 EXC_EVERY = 13
 MAX_ITER_FACTOR = 40
+ACC_RULES = dict(nruns=NRUNS, defl_mult=DEFL_MULT, cplx_stall=CPLX_STALL)
 # the v2 kernel's rules (eig_qr_pallas._kernel): one window per lane,
 # deflation multiplier 1, the complex Wilkinson branch always open
 V2_RULES = dict(nruns=1, defl_mult=1., cplx_stall=0)
+# rows of a chase window of csrc/schur_qr.cu (its kW): the window at which
+# the plain model of its schedule follows the kernel
+WINDOW = 32
 
 # 'schur_ms' counts every launch of a function of csrc/schur_ms.cu (band
 # scan, AED or trailing-block shifts, chase, slab products),
@@ -194,12 +198,91 @@ def _wilkinson(a, b, c, d, stalled):
                          torch.where(pick1, l1i, l2i))
 
 
-def _single_shift_sweeps(H, Z, max_iters, nruns, defl_mult, cplx_stall):
-    """At most ``max_iters`` implicit single-shift QR sweeps, rotations
-    applied directly: up to ``nruns`` windows a sweep, deflation at
-    ``defl_mult`` eps (|d| + |d'|), the complex Wilkinson branch of an
-    exactly real discriminant open after ``cplx_stall`` sweeps without
-    progress.  Returns (T, Z, hi, sweeps, rotations) per lane."""
+def _rotate(c, s, W):
+    """[c u + s v, c v - conj(s) u] for W = [u, v] stacked on dim -2
+    (complex, (..., 2, m)), c real and s complex of the batch shape (...).
+    The arithmetic is the kernel's, operation by operation, in real
+    element-wise operations that round alike at any shape: so every
+    schedule that applies the same rotation to an entry gets the same
+    bits.  (c v + (-conj(s)) u rounds as c v - conj(s) u: IEEE rounding is
+    symmetric in sign.)  A column rotation is ``_rotate(c, s.conj(), ...)``."""
+    Wr = torch.view_as_real(W)                          # (..., 2, m, 2)
+    X = Wr.flip(-3)                                     # [v, u]
+    S = torch.view_as_real(torch.stack([s, -s.conj()], -1))[..., None, :]
+    sr, si = S[..., 0], S[..., 1]                       # (..., 2, 1)
+    xr, xi = X[..., 0], X[..., 1]
+    p = torch.stack([sr * xr - si * xi, sr * xi + si * xr], -1)
+    return torch.view_as_complex(c[..., None, None, None] * Wr + p)
+
+
+def _rotate_rows(c, s, X, k):
+    """Rows k, k+1 of X (..., r, m) take the rotation, in place."""
+    X[..., k:k + 2, :] = _rotate(c, s, X[..., k:k + 2, :])
+
+
+def _rotate_cols(c, s, X, k):
+    """Columns k, k+1 of X (..., m, r) take the rotation's conjugate
+    transpose from the right, in place."""
+    cols = X[..., k:k + 2]
+    cols.copy_(_rotate(c, s.conj(), cols.transpose(-1, -2))
+               .transpose(-1, -2))
+
+
+def _window_chains(cs, right, above, zcols):
+    """The deferred half of a chase window: its rotations ``cs`` in
+    ascending k on the slab right of the window (rows k0..k1+1), and on the
+    slab above it and Z's columns k0..k1+1 from the right (views, updated
+    in place).  The kernel runs the part that the next window does not
+    read while it chases that window; no entry's operations change order."""
+    for t, (c, s) in enumerate(cs):
+        _rotate_rows(c, s, right, t)
+        _rotate_cols(c, s, above, t)
+        _rotate_cols(c, s, zcols, t)
+
+
+def _window_run(H, Z, lo, hr, shift, hi, window):
+    """One run's bulge chased from ``lo`` to ``hr`` on one lane (H, Z
+    (n, n), updated in place) as csrc/schur_qr.cu schedules it: through
+    windows of ``window`` rows (rows [a, a + w), columns [a - 1, a + w)),
+    each rotation applied there to rows k, k+1 over columns >= k - 1 and to
+    columns k, k+1 over rows <= k + 2 and recorded, and the window's
+    rotations then applied to the rest by ``_window_chains``.  A window
+    stops where the next column update would leave it; the next one starts
+    where the bulge sits."""
+    n = H.shape[-1]
+    zero = torch.zeros((), dtype=H.dtype, device=H.device)
+    x, y = H[lo, lo] - shift, H[lo + 1, lo]
+    a = lo
+    while True:
+        re = min(a + window, n)
+        k1 = hr - 1 if re == n else min(hr - 1, a + window - 3)
+        c0 = max(a - 1, 0)
+        win = H[a:re, c0:re]
+        cs = []
+        for k in range(a, k1 + 1):
+            c, s = _givens(x, y)
+            cs.append((c, s))
+            _rotate_rows(c, s, win[:, max(k - 1, 0) - c0:], k - a)
+            _rotate_cols(c, s, win[:min(k + 2, n - 1) - a + 1], k - c0)
+            x = win[k + 1 - a, k - c0]
+            y = (win[k + 2 - a, k - c0] if k + 2 <= min(hi, n - 1)
+                 else zero)
+        _window_chains(cs, H[a:k1 + 2, re:], H[:a, a:k1 + 2],
+                       Z[:, a:k1 + 2])
+        if k1 == hr - 1:
+            return
+        a = k1 + 1
+
+
+def _single_shift_sweeps(H, Z, max_iters, nruns, defl_mult, cplx_stall,
+                         window=None):
+    """At most ``max_iters`` implicit single-shift QR sweeps: up to
+    ``nruns`` windows a sweep, deflation at ``defl_mult`` eps (|d| + |d'|),
+    the complex Wilkinson branch of an exactly real discriminant open after
+    ``cplx_stall`` sweeps without progress.  Rotations are applied directly,
+    all lanes in step; with ``window`` lane by lane in the schedule of the
+    CUDA kernel (``_window_run``), which applies the same rotations.
+    Returns (T, Z, hi, sweeps, rotations) per lane."""
     H = H.clone()
     Z = Z.clone()
     B, n = H.shape[0], H.shape[-1]
@@ -239,6 +322,7 @@ def _single_shift_sweeps(H, Z, max_iters, nruns, defl_mult, cplx_stall):
         x0 = torch.zeros(B, n, dtype=H.dtype, device=dev)
         y0 = torch.zeros(B, n, dtype=H.dtype, device=dev)
         h_r, l_r = hi, lo_of(hi)
+        runs = []
         for r in range(nruns):
             if r > 0:
                 h_r = torch.where((lane <= (l_r - 1)[:, None]) & alive, lane,
@@ -260,8 +344,17 @@ def _single_shift_sweeps(H, Z, max_iters, nruns, defl_mult, cplx_stall):
             lo_c = l_r.clamp(max=n - 2)
             x0 = torch.where(at_lo, (H[bidx, lo_c, lo_c] - sh)[:, None], x0)
             y0 = torch.where(at_lo, H[bidx, lo_c + 1, lo_c][:, None], y0)
+            runs.append((l_r.tolist(), h_r.tolist(), valid.tolist(), sh))
         rot += act.sum(-1)
-        if bool(act.any()):
+        if window is not None and bool(act.any()):
+            his = hi.tolist()
+            for b in range(B):
+                for lo_b, hr_b, ok, sh in reversed(runs):
+                    if ok[b]:
+                        _window_run(H[b], Z[b], lo_b[b], hr_b[b], sh[b],
+                                    his[b], window)
+            H = H.masked_fill(two_below, 0)
+        elif bool(act.any()):
             ks = act.any(0).nonzero()
             k0, k1 = int(ks[0]), int(ks[-1]) + 1
             x = torch.zeros(B, dtype=H.dtype, device=dev)
@@ -271,14 +364,14 @@ def _single_shift_sweeps(H, Z, max_iters, nruns, defl_mult, cplx_stall):
                 x = torch.where(i_k, x0[:, k], x)
                 y = torch.where(i_k, y0[:, k], y)
                 c, s = _givens(x, y)
-                c = torch.where(a_k, c, torch.ones_like(c)).to(H.dtype)
+                c = torch.where(a_k, c, torch.ones_like(c))
                 s = torch.where(a_k, s, torch.zeros_like(s))
-                G = torch.stack([torch.stack([c, s], -1),
-                                 torch.stack([-s.conj(), c], -1)], -2)
-                GH = G.conj().transpose(-1, -2)
-                H[:, k:k + 2, :] = G @ H[:, k:k + 2, :]
-                H[:, :, k:k + 2] = H[:, :, k:k + 2] @ GH
-                Z[:, :, k:k + 2] = Z[:, :, k:k + 2] @ GH
+                # the kernel's ranges: rows over columns >= k - 1, columns
+                # over rows <= k + 2; the rest of those rows and columns is
+                # below the band and stays zero
+                _rotate_rows(c, s, H[:, :, max(k - 1, 0):], k)
+                _rotate_cols(c, s, H[:, :min(k + 2, n - 1) + 1], k)
+                _rotate_cols(c, s, Z, k)
                 xn = H[:, k + 1, k]
                 if k + 2 <= n - 1:
                     yn = torch.where(k + 2 <= hi, H[:, k + 2, k],
@@ -293,13 +386,14 @@ def _single_shift_sweeps(H, Z, max_iters, nruns, defl_mult, cplx_stall):
     return H.masked_fill(lower, 0), Z, hi, sweeps, rot
 
 
-def schur_qr_plain(H, Z, max_iter_factor=MAX_ITER_FACTOR):
+def schur_qr_plain(H, Z, max_iter_factor=MAX_ITER_FACTOR, max_iters=None):
     """Implicit single-shift complex Schur QR by the rules of
     eig_qr_pallas._kernel_acc (four windows a sweep, multiplier 4, stall
     gate 30).  Returns (T, Z, hi, sweeps) with per-lane final window bottom
     ``hi`` (0 == converged) and sweep count; T is not NaN-poisoned here."""
-    return _single_shift_sweeps(H, Z, max_iter_factor * H.shape[-1], NRUNS,
-                                DEFL_MULT, CPLX_STALL)[:4]
+    if max_iters is None:
+        max_iters = max_iter_factor * H.shape[-1]
+    return _single_shift_sweeps(H, Z, max_iters, **ACC_RULES)[:4]
 
 
 def _poison(T, hi):
@@ -309,29 +403,44 @@ def _poison(T, hi):
     return torch.where(bad & eye, torch.full_like(T, float('nan')), T)
 
 
-def schur_qr(H, Q, max_iter_factor=MAX_ITER_FACTOR, return_stats=False):
+def _single_shift_kernel(name, entry, H, Q, max_iters):
+    """Launch one entry point of csrc/schur_qr.cu: (T, Z, (hi, sweeps,
+    rotations))."""
+    B, n = H.shape[0], H.shape[-1]
+    T = torch.empty_like(H)
+    Z = torch.empty_like(H)
+    stats = torch.empty(B, 3, dtype=torch.int32, device=H.device)
+    err = getattr(_build.load(), entry)(
+        H.data_ptr(), Q.data_ptr(), T.data_ptr(), Z.data_ptr(),
+        stats.data_ptr(), B, n, max_iters, _stream())
+    _raise_on(name, err)
+    LAUNCHES[name] += 1
+    return T, Z, (stats[:, 0], stats[:, 1], stats[:, 2])
+
+
+def schur_qr(H, Q, max_iter_factor=MAX_ITER_FACTOR, return_stats=False,
+             max_iters=None):
     """Batched Schur QR: Hessenberg H and its Q -> (T, Z) with H = Z T Z^H.
 
-    Lanes that run out of the ``max_iter_factor * n`` sweep budget get NaN
-    eigenvalues (the zgeev INFO analogue).  With ``return_stats`` also
-    returns (window bottom, sweeps) per lane, int tensors of shape (B,).
+    Lanes that run out of the ``max_iter_factor * n`` sweep budget
+    (``max_iters`` sweeps when given) get NaN eigenvalues (the zgeev INFO
+    analogue).  With ``return_stats`` also returns (window bottom, sweeps,
+    rotations applied) per lane, int tensors of shape (B,).  A CUDA tensor
+    goes through ``csrc/schur_qr.cu`` (complex64 only), a CPU tensor
+    through the plain version.
     """
+    if max_iters is None:
+        max_iters = max_iter_factor * H.shape[-1]
     if _check('schur_qr', H, Q):
-        B, n = H.shape[0], H.shape[-1]
-        T = torch.empty_like(H)
-        Z = torch.empty_like(H)
-        stats = torch.empty(B, 3, dtype=torch.int32, device=H.device)
-        err = _build.load().torcwa_schur_qr_c64(
-            H.data_ptr(), Q.data_ptr(), T.data_ptr(), Z.data_ptr(),
-            stats.data_ptr(), B, n, max_iter_factor * n, _stream())
-        _raise_on('schur_qr', err)
-        LAUNCHES['schur_qr'] += 1
-        hi, sweeps = stats[:, 0], stats[:, 1]
+        T, Z, st = _single_shift_kernel('schur_qr', 'torcwa_schur_qr_c64',
+                                        H, Q, max_iters)
     else:
-        T, Z, hi, sweeps = schur_qr_plain(H, Q, max_iter_factor)
-    T = _poison(T, hi)
+        T, Z, hi, sweeps, rot = _single_shift_sweeps(H, Q, max_iters,
+                                                     **ACC_RULES)
+        st = (hi, sweeps, rot)
+    T = _poison(T, st[0])
     if return_stats:
-        return T, Z, (hi, sweeps)
+        return T, Z, st
     return T, Z
 
 
@@ -352,27 +461,22 @@ def schur_qr_v2(H, Q, max_iter_factor=MAX_ITER_FACTOR, return_stats=False,
     Counterpart of ``schur_qr_pallas_batched``: a lane that runs out of the
     ``max_iter_factor * n`` sweep budget (``max_iters`` sweeps when given)
     is handed back as it stands, NOT NaN-poisoned.  With ``return_stats``
-    also returns (window bottom, sweeps, rotations applied) per lane.  A CUDA tensor goes through the kernel's second entry
-    point in ``csrc/schur_qr.cu`` (complex64 only), a CPU tensor through
-    the plain version."""
+    also returns (window bottom, sweeps, rotations applied) per lane.  A
+    CUDA tensor goes through the kernel's second entry point in
+    ``csrc/schur_qr.cu`` (complex64 only), a CPU tensor through the plain
+    version."""
     if _check('schur_qr_v2', H, Q):
-        B, n = H.shape[0], H.shape[-1]
         if max_iters is None:
-            max_iters = max_iter_factor * n
-        T = torch.empty_like(H)
-        Z = torch.empty_like(H)
-        stats = torch.empty(B, 3, dtype=torch.int32, device=H.device)
-        err = _build.load().torcwa_schur_qr_v2_c64(
-            H.data_ptr(), Q.data_ptr(), T.data_ptr(), Z.data_ptr(),
-            stats.data_ptr(), B, n, max_iters, _stream())
-        _raise_on('schur_qr_v2', err)
-        LAUNCHES['schur_qr_v2'] += 1
-        hi, sweeps, rot = stats[:, 0], stats[:, 1], stats[:, 2]
+            max_iters = max_iter_factor * H.shape[-1]
+        T, Z, st = _single_shift_kernel('schur_qr_v2',
+                                        'torcwa_schur_qr_v2_c64', H, Q,
+                                        max_iters)
     else:
         T, Z, hi, sweeps, rot = schur_qr_v2_plain(H, Q, max_iter_factor,
                                                   max_iters)
+        st = (hi, sweeps, rot)
     if return_stats:
-        return T, Z, (hi, sweeps, rot)
+        return T, Z, st
     return T, Z
 
 

@@ -1,6 +1,6 @@
 """Complex eig through the hand-written kernels, by two routes, then
-V = Z Y, unit-norm columns and, for complex64, four refinement steps with
-the residual in complex128.
+V = Z Y, unit-norm columns and four refinement steps with the residual in
+complex128.
 
 Counterpart of the routing in ``torcwa_tpu/ops/eig_qr_real.py``
 (``eig_qr_real``, ``_eig_real_batched``, ``_eig_real_single``):
@@ -46,7 +46,7 @@ LARGE_MIN_N = 512
 SMALL_SCHUR = schur_qr
 # deflation-threshold multiplier of the multishift QR (eig_qr_real._HBM_DEFL)
 LARGE_DEFL_MULT = 4.0
-# refinement of a complex64 result: (steps, gap).  Pairs with |E_ij| >= gap
+# refinement of the result, complex64 or complex128: (steps, gap).  Pairs with |E_ij| >= gap
 # |w_j - w_i| count as degenerate at the accuracy of the pass before and keep
 # their basis.  The multishift QR streams ~2000 slab products through Z at
 # n = 3362 and leaves a Schur residual of ~1e-5 ||A||, ten times the small
@@ -62,15 +62,19 @@ REFINE = (4, 1.0)
 
 
 def _refine(A, w, V, gap=REFINE[1]):
-    """One step of first-order eigenpair refinement of a complex64 result.
+    """One step of first-order eigenpair refinement.
 
-    With the residual taken in complex128 (where the complex64 A is exact),
+    With the residual taken in complex128 (where a complex64 A is exact),
     A V = V (diag(w) + E) and the first-order update is w_i += E_ii and
     V += V F, F_ij = E_ij / (w_j - w_i) off the diagonal.  The single-shift
     QR accumulates ~1e5 rotations into Z, which leaves the eigenvectors of
     close pairs about 10x less accurate than LAPACK's complex64; this step
-    brings them to the accuracy of A itself.  Pairs with |E_ij| >= gap
-    |w_j - w_i| keep their basis.  Non-converged (NaN) lanes stay NaN."""
+    brings them to the accuracy of A itself.  A complex128 result takes it
+    in its own precision, which still removes what the rotations added:
+    at order (2, 2), 0.2 degrees, the raster gradient's distance from the
+    JAX package's falls from 2.1e-6 to 5.6e-7 (LAPACK's own: 9.4e-7).
+    Pairs with |E_ij| >= gap |w_j - w_i| keep their basis.  Non-converged
+    (NaN) lanes stay NaN."""
     A64, w64, V64 = A.to(torch.complex128), w.to(torch.complex128), \
         V.to(torch.complex128)
     R = A64 @ V64 - V64 * w64[..., None, :]
@@ -102,12 +106,11 @@ def _eig_large(A):
 
 
 def _finish(A3, w, V):
-    """Unit-norm columns and, for complex64, the refinement steps."""
+    """Unit-norm columns and the refinement steps."""
     nrm = torch.linalg.vector_norm(V, dim=-2, keepdim=True)
     V = V / torch.where(nrm > 0, nrm, torch.ones_like(nrm))
-    if A3.dtype == torch.complex64:
-        for _ in range(REFINE[0]):
-            w, V = _refine(A3, w, V, REFINE[1])
+    for _ in range(REFINE[0]):
+        w, V = _refine(A3, w, V, REFINE[1])
     return w, V
 
 
