@@ -15,16 +15,19 @@ Phases (each prints its results; any failure exits non-zero):
   2. build: nvcc the kernels in torcwa_tpu_torch/csrc
   3. each small-route kernel against its plain PyTorch version on the card,
      on random complex64 matrices (B=2, n=48) and on the order-6 wave
-     matrices A = P Q (B=8, n=338) built by the port's own pq_pair;
-     schur_qr's per-lane stats beside the per-rotation kernel's it replaced
-     (QR_STATS_PER_ROTATION); after a budget of sweeps on a random batch,
+     matrices A = P Q (B=8, n=338) built by the port's own pq_pair, with
+     the kernel hessenberg takes there (cluster size, shared memory,
+     clusters at once); schur_qr's per-lane stats beside the per-rotation
+     kernel's it replaced (QR_STATS_PER_ROTATION); after a budget of sweeps
+     on a random batch,
      schur_qr element by element against the plain model of its windowed
      schedule
   4. the large-route kernels against their plain versions: the multishift
      QR at n = 300 and 640, one sweep of chase windows at n = 640 against
      the plain float32 and float64 chases, the slab products, the blocked
-     vectors and the blocked Hessenberg reduction at n = 640, the NaN
-     contract
+     vectors (against the plain recurrence by rows and by columns, the
+     kernel's order) and the blocked Hessenberg reduction at n = 640 against
+     the batched one, the NaN contract
   5. the order-6 slice: launch counts of the main path, |t_xx|^2 and the
      raster gradient against a complex128 torch.linalg.eig oracle at 0, 0.2
      and 10 degrees at order 6, and at 10 degrees at order 10 (2N = 882, one
@@ -35,8 +38,11 @@ Phases (each prints its results; any failure exits non-zero):
      against the complex128 oracle; then normal incidence (degenerate mode
      pairs): the multishift QR converges and the forward |t_xx|^2 agrees
      with the oracle
-  7. times with CUDA events (schur_qr beside the kernel it replaced); the
-     two routes at n = 338, 450, 578 and 882
+  7. times with CUDA events (schur_qr beside the kernel it replaced;
+     hessenberg at n = 338 and 450 beside one block per matrix, with its
+     cluster size and the clusters the card runs at once; torch.linalg.eig
+     of the triangular factor beside the two vectors kernels); the two
+     routes at n = 338, 450, 578 and 882
   8. torch.profiler over one order-6 sweep and one order-20 solve: device
      time by kernel, idle share
   9. the stand-alone stages against their plain versions: schur_qr_v2 at
@@ -262,6 +268,18 @@ def wave_matrices(torch, tp, order, lams, inc, dtype, dev):
     return eps, P @ Q
 
 
+def hessenberg_path(ek, n):
+    """Which kernel ek.hessenberg launches at n, with the cluster's shared
+    memory and how many clusters the card runs at once."""
+    info = ek.hessenberg_cluster_info(n)
+    if info is None:
+        return 'one block of 1024 threads per matrix'
+    return (f'a cluster of {info["cluster"]} CTAs per matrix, '
+            f'{info["smem_bytes"]} bytes of shared memory a CTA, Q in '
+            f'{"shared" if info["q_in_smem"] else "device"} memory, '
+            f'{info["active_clusters"]} clusters at once')
+
+
 def kernel_checks(torch, ek, A, label, record, elementwise):
     """Phase 3 on one batch of matrices; fills `record` with the errors.
 
@@ -285,6 +303,7 @@ def kernel_checks(torch, ek, A, label, record, elementwise):
     eye = torch.eye(n, dtype=A.dtype, device=A.device)
 
     H, Q = ek.hessenberg(A)
+    print(f'  hessenberg path: {hessenberg_path(ek, n)}')
     t0 = time.perf_counter()
     Hp, Qp = hessenberg_plain(A)
     torch.cuda.synchronize()
@@ -490,7 +509,11 @@ def profile_sweep(torch, tp, eps32):
     kern = [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in kern) / 1e3
-    ours = [e for e in kern if any(k + '_kernel' in e.key for k in SMALL)]
+    # the Hessenberg reduction's kernels: hessenberg_kernel (one block a
+    # matrix) and hessenberg_cluster_kernel<P>
+    ours = [e for e in kern if any(k + '_kernel' in e.key
+                                   or k + '_cluster_kernel' in e.key
+                                   for k in SMALL)]
     eig_ms = sum(e.self_device_time_total for e in ours) / 1e3
     n_other = sum(e.count for e in kern) - sum(e.count for e in ours)
     print(f'  wall per sweep (no profiler, mean of 3) {wall_ms:.3f} ms; '
@@ -521,14 +544,16 @@ def schur_quality(torch, A, T, Z):
         bool((torch.tril(T, -1) == 0).all())
 
 
-def plain_blocked_vectors(torch, vb, T, block):
-    """tri_vectors_blocked with the plain in-block recurrence."""
+def plain_blocked_vectors(torch, vb, T, block, by_columns=False):
+    """tri_vectors_blocked with the plain in-block recurrence (with
+    ``by_columns`` in the kernel's order)."""
     n = T.shape[-1]
     dmin = vb.pivot_floor(T)
     Y = torch.eye(n, dtype=T.dtype, device=T.device)
     for r1 in range(n, 0, -block):
         r0 = max(r1 - block, 0)
-        vb.tri_vectors_block_plain(T, T[r0:r1, r1:] @ Y[r1:], dmin, Y, r0, r1)
+        vb.tri_vectors_block_plain(T, T[r0:r1, r1:] @ Y[r1:], dmin, Y, r0, r1,
+                                   by_columns=by_columns)
     return Y
 
 
@@ -662,6 +687,7 @@ def large_kernel_checks(torch, ek, dev):
     # against the kernels at n = 300 above and for two sweeps at n = 3362
     # in phase 6); the kernels are held against complex128 LAPACK instead
     A = rand_c64(torch, N_BIG, 640, dev)
+    print(f'-- hessenberg n={N_BIG}, one matrix: {hessenberg_path(ek, N_BIG)}')
     H1, Q1 = ek.hessenberg(A[None].contiguous())
     H, Q = hessenberg_blocked(A)
     rec = float((Q @ H @ Q.mH - Q1[0] @ H1[0] @ Q1[0].mH).abs().max())
@@ -709,16 +735,20 @@ def large_kernel_checks(torch, ek, dev):
               'the sweep')
     Y = vb.tri_vectors_blocked(T)
     Yp = plain_blocked_vectors(torch, vb, T, vb.MAX_BLOCK)
+    Yc = plain_blocked_vectors(torch, vb, T, vb.MAX_BLOCK, by_columns=True)
     Y1 = ek.tri_vectors(T[None].contiguous())[0]
     sep = separated(torch, torch.diagonal(T))
     scale = float(Yp.abs().max())
     e_p = float(((Y - Yp).abs().amax(0) * sep).max()) / scale
+    e_c = float(((Y - Yc).abs().amax(0) * sep).max()) / scale
     e_1 = float(((Y - Y1).abs().amax(0) * sep).max()) / scale
     print(f'-- tri_vectors_blocked n={N_BIG}: vs plain {e_p:.2e}, vs the '
-          f'batched kernel {e_1:.2e} (relative, {int(sep.sum())} separated '
-          f'columns of {N_BIG})')
-    check(e_p <= 1e-4 and e_1 <= 1e-4,
-          f'tri_vectors_blocked n={N_BIG} == plain == batched kernel <= 1e-4')
+          f'plain model of its order (by columns) {e_c:.2e}, vs the batched '
+          f'kernel {e_1:.2e} (relative, {int(sep.sum())} separated columns '
+          f'of {N_BIG})')
+    check(e_p <= 1e-4 and e_c <= 1e-4 and e_1 <= 1e-4,
+          f'tri_vectors_blocked n={N_BIG} == plain (both orders) == batched '
+          'kernel <= 1e-4')
 
     # the slab products at the main path's shapes, the three products of
     # an applied transform in one launch as the route calls them: n = 3362,
@@ -1961,8 +1991,29 @@ def main():
                            'B=8 n=338')
     # A read, H and Q written; zgehrd + zunghr: (5/3 + 2/3) n^3 complex
     # multiply-adds of 8 flops
-    bounds['hessenberg'] = bound(3 * B6 * n6 * n6 * C64,
-                                 B6 * (7 / 3) * n6 ** 3 * 8)
+    def hess_bound(B, n):
+        return bound(3 * B * n * n * C64, B * (7 / 3) * n ** 3 * 8)
+
+    bounds['hessenberg'] = hess_bound(B6, n6)
+    # the order-7 batch at 10 deg (n = 450), and both sizes in one block per
+    # matrix (the kernel before the cluster), with the path each takes
+    _, A7 = wave_matrices(torch, tp, (7, 7), LAMS,
+                          math.radians(WELL_POSED_DEG), torch.float32, dev)
+    A7 = A7.contiguous()
+    n7 = A7.shape[-1]
+    hess = {'n450_ms': cuda_ms(torch, lambda: ek.hessenberg(A7)),
+            'n450_bound_ms': hess_bound(B6, n7)[0],
+            'one_block_ms': [cuda_ms(torch, lambda: ek.hessenberg(X, cluster=0))
+                             for X in (A6c, A7)]}
+    for nh in (n6, n7):
+        info = ek.hessenberg_cluster_info(nh)
+        hess[f'n{nh}_cluster'] = info and info['cluster']
+        hess[f'n{nh}_active_clusters'] = info and info['active_clusters']
+    print(f'  hessenberg B=8: n = {n6} {times["hessenberg"][0]:.3f} ms on '
+          f'{hessenberg_path(ek, n6)}; n = {n7} {hess["n450_ms"]:.3f} ms on '
+          f'{hessenberg_path(ek, n7)} (bound {hess["n450_bound_ms"]:.4f} '
+          f'ms); one block per matrix {hess["one_block_ms"][0]:.3f} / '
+          f'{hess["one_block_ms"][1]:.3f} ms [{smi}]')
     times['schur_qr'] = (cuda_ms(torch, lambda: ek.schur_qr(H6, Q6)),
                          rec_main['qr_plain_ms'],
                          'B=8 n=338; plain: one run, in phase 3')
@@ -1978,6 +2029,11 @@ def main():
     times['tri_vectors'] = (cuda_ms(torch, lambda: ek.tri_vectors(T6)),
                             cuda_ms(torch, lambda: tri_vectors_plain(T6)),
                             'B=8 n=338')
+    # one PyTorch call for the function of each triangular-vectors kernel:
+    # torch.linalg.eig of the triangular factor gives the same eigenvectors
+    # up to column scaling (timed here, never on the path)
+    library = {'tri_vectors': cuda_ms(torch, lambda: torch.linalg.eig(T6),
+                                      reps=3)}
     # T read, Y written; n^3/6 complex multiply-adds
     bounds['tri_vectors'] = bound(2 * B6 * n6 * n6 * C64,
                                   B6 * n6 ** 3 / 6 * 8)
@@ -1998,6 +2054,11 @@ def main():
     ms_ref = cuda_ms(torch, lambda: eq._refine(A20[None], wv, Vv,
                                                eq.REFINE[1]), reps=3)
     lib20 = cuda_ms(torch, lambda: torch.linalg.eig(A20), reps=1)
+    library['tri_vectors_blocked'] = cuda_ms(
+        torch, lambda: torch.linalg.eig(T20), reps=1)
+    print(f'  library figure per stage: torch.linalg.eig of the triangular '
+          f'factor, B = 8, n = {n6}: {library["tri_vectors"]:.1f} ms; n = '
+          f'{T20.shape[-1]}: {library["tri_vectors_blocked"]:.1f} ms [{smi}]')
     ms_20l = cuda_ms(torch, lambda: fwd_grad(torch, tp, o20['eps'], LAM_L,
                                              ORDER_L, inc, 'torch'), reps=1)
     print(f'  order-20 fwd+grad, eig kernels: {ms_20 / 1e3:.6f} s/solve '
@@ -2132,8 +2193,9 @@ def main():
                 'replaces': REPLACES[k], 'launches': launches[k],
                 'max_abs_err': errs[k], 'ms': times[k][0],
                 'plain_ms': times[k][1], 'bound_ms': bounds[k][0],
-                'bound_by': bounds[k][1], 'library_ms': None}
+                'bound_by': bounds[k][1], 'library_ms': library.get(k)}
                for k in REPLACES]
+    kernels[list(REPLACES).index('hessenberg')].update(hess)
     kernels[list(REPLACES).index('schur_qr')].update(
         model_max_rel_err=qr_model_err)
     kernels[list(REPLACES).index('schur_ms')].update(

@@ -1,24 +1,51 @@
-"""The batched single-shift Schur QR kernel (csrc/schur_qr.cu) of one or
-more checkouts, on the same inputs, in one call on the card: per-lane
-stats and times.
+"""One kernel stage of one or more checkouts, on the same inputs, in one
+call on the card: the batched single-shift Schur QR (csrc/schur_qr.cu;
+the default), the batched Hessenberg reduction (csrc/hessenberg.cu) or
+the blocked triangular eigenvectors (csrc/tri_vectors_blocked.cu).
 
-    python3 qr_compare.py [--fmad=false] [DIR ...]   (default: this checkout)
+    python3 qr_compare.py [--stage schur_qr|hessenberg|tri_vectors_blocked|
+                                   unitarity]
+                          [--fmad=false] [--split] [DIR ...]
+                          (default: this checkout)
 
 Each DIR is the root of a checkout of this repository (an older commit's
 made with ``git archive``).  Each runs in a process of its own that builds
 its kernels from its own csrc/, in the order given, so two versions
 compare on one card as DIR_A DIR_B DIR_B DIR_A.  The inputs are those of
-chip_smoke.py, built by the checkout's own wave_matrices and hessenberg
-(the same code in every checkout so far): the order-6 wave matrices at 0
-degrees (B = 8, n = 338; phase 3) and the 10-degree batches at orders 6,
-7, 8 (n = 338, 450, 578; phase 14).  Both entry points (schur_qr,
-schur_qr_v2), whose C signature every checkout so far shares.  Prints,
-per DIR, one JSON line: per-lane (hi, sweeps, rotations) read through the
-C entry point, and the median of 3 CUDA-event times after a warm-up, with
-the card's name and power limit.  With --fmad=false each checkout's
-csrc/schur_qr.cu is built alone without FMA contraction and only the stats
-are read: two kernels that apply the same operations in the same order
-then agree bit for bit.  Needs a CUDA card; exits non-zero without one.
+chip_smoke.py, built by the checkout's own code.  Prints, per DIR, one
+JSON line with the median of 3 CUDA-event times after a warm-up and the
+card's name and power limit.
+
+* schur_qr: the order-6 wave matrices at 0 degrees (B = 8, n = 338; phase
+  3) and the 10-degree batches at orders 6, 7, 8 (n = 338, 450, 578; phase
+  14), Hessenberg form by the checkout's ek.hessenberg; both entry points
+  (schur_qr, schur_qr_v2), whose C signature every checkout so far
+  shares; per-lane (hi, sweeps, rotations) read through the C entry
+  point.  With --fmad=false each checkout's csrc/schur_qr.cu is built
+  alone without FMA contraction and only the stats are read: two kernels
+  that apply the same operations in the same order then agree bit for bit.
+* hessenberg: ek.hessenberg on the B = 8 wave matrices at n = 338 (order
+  6, 0 degrees) and n = 450 (order 7, 10 degrees) as the checkout routes
+  it and, where the checkout has a cluster kernel, at every cluster size
+  that holds n and in one block, with the cluster's shared memory and the
+  clusters the card runs at once.  With --split the checkout's
+  csrc/hessenberg.cu is built alone with -DHESS_SPLIT, and one call of the
+  cluster kernel at each size gives the cycles that thread 0 of the first
+  CTA spends in each part of a step, averaged over the n - 2 steps.
+* tri_vectors_blocked: the in-block kernel over all row blocks of the
+  order-20 Schur factor (phase 6's T, 2N = 3362, S precomputed, as
+  chip_smoke.py phase 7), the whole tri_vectors_blocked with its GEMMs
+  and torch.linalg.eig(T) beside them, with checksums of T and Y.
+* unitarity: max|Z^H Z - I| of the multishift Schur stages where their
+  float32 round-off meets chip_smoke.py's 1e-5 gates: schur_qr_ms (m = 16)
+  on the order-6 wave matrix at 500 nm (phase 10) and schur_qr_baed on the
+  order-7 batch (phase 13), each from the Hessenberg form of the routed
+  reduction, one block a matrix (where the checkout has the cluster kernel),
+  the plain float32 reduction and the float64 one rounded to complex64;
+  schur_ms as the route calls it on random matrices at n = 640, seeds 640
+  to 651 (phase 4 takes seed 640).
+
+Needs a CUDA card; exits non-zero without one.
 """
 
 import ctypes
@@ -84,23 +111,203 @@ def one(label, no_fma):
     print(json.dumps(out), flush=True)
 
 
+SPLIT_PARTS = ('wait at barrier 1', 'v and beta', 'w, H -= v w',
+               'partial sums of H v', 'Q rows', 'wait at barrier 2',
+               'u, H -= u v^H')
+
+
+def _split_library(_build):
+    """The checkout's csrc/hessenberg.cu alone, built with -DHESS_SPLIT."""
+    out = _build.BUILD_ROOT / 'qr_compare_split' / 'libhessenberg.so'
+    out.parent.mkdir(parents=True, exist_ok=True)
+    subprocess.run([_build._nvcc(), '-gencode',
+                    'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
+                    '-Xcompiler', '-fPIC', '-shared', '-DHESS_SPLIT', '-o',
+                    str(out), str(_build.CSRC / 'hessenberg.cu')], check=True)
+    lib = ctypes.CDLL(str(out))
+    lib.torcwa_hessenberg_c64.argtypes = \
+        _build._SIGNATURES['torcwa_hessenberg_c64']
+    lib.torcwa_hessenberg_split.argtypes = [ctypes.c_void_p]
+    return lib
+
+
+def one_hessenberg(label, split):
+    """--stage hessenberg in the checkout that is the working directory."""
+    sys.path.insert(0, os.getcwd())
+    import torch
+    import chip_smoke as cs
+    import torcwa_tpu_torch as tp
+    from torcwa_tpu_torch.ops import _build, eig_kernels as ek
+    dev = torch.device('cuda', 0)
+    out = dict(dir=label, card=cs.smi_line(), stage='hessenberg', ms={},
+               clusters={}, residual={}, split_cycles_per_step={})
+    # only a checkout with the cluster kernel records its split
+    lib = (_split_library(_build)
+           if split and hasattr(ek, 'hessenberg_cluster') else None)
+    for inc_name, order, inc_deg in CASES[:3:2]:
+        _, A = cs.wave_matrices(torch, tp, (order, order), cs.LAMS,
+                                math.radians(inc_deg), torch.float32, dev)
+        A = A.contiguous()
+        n = A.shape[-1]
+        H, Q = ek.hessenberg(A)
+        res = torch.linalg.matrix_norm(Q @ H @ Q.mH - A) \
+            / torch.linalg.matrix_norm(A)
+        out['residual'][f'n={n}'] = float(res.max())
+        out['ms'][f'n={n} {inc_name} routed'] = cs.cuda_ms(
+            torch, lambda: ek.hessenberg(A), reps=3)
+        if not hasattr(ek, 'hessenberg_cluster'):
+            continue
+        for p in (ek.CLUSTER, ek.CLUSTER_WIDE, 0):
+            if p and not ek.hessenberg_cluster(n, p):
+                continue
+            if p:
+                out['clusters'][f'n={n} P={p}'] = \
+                    ek.hessenberg_cluster_info(n, p)
+            out['ms'][f'n={n} {inc_name} P={p}'] = cs.cuda_ms(
+                torch, lambda: ek.hessenberg(A, cluster=p), reps=3)
+            if lib is not None and p:
+                cycles = (ctypes.c_ulonglong * 8)()
+                lib.torcwa_hessenberg_split(cycles)
+                Hs, Qs = torch.empty_like(A), torch.empty_like(A)
+                err = lib.torcwa_hessenberg_c64(
+                    A.data_ptr(), Hs.data_ptr(), Qs.data_ptr(), A.shape[0],
+                    n, p, torch.cuda.current_stream().cuda_stream)
+                torch.cuda.synchronize()
+                lib.torcwa_hessenberg_split(cycles)
+                if err:
+                    raise RuntimeError(f'split build: launch failed ({err})')
+                out['split_cycles_per_step'][f'n={n} P={p}'] = {
+                    part: cycles[i] / (n - 2)
+                    for i, part in enumerate(SPLIT_PARTS)}
+    print(json.dumps(out), flush=True)
+
+
+def one_tri_vectors_blocked(label):
+    """--stage tri_vectors_blocked in the checkout that is the working
+    directory."""
+    sys.path.insert(0, os.getcwd())
+    import torch
+    import chip_smoke as cs
+    import torcwa_tpu_torch as tp
+    from torcwa_tpu_torch.ops import (eig_qr as eq, schur_ms as sm,
+                                      vec_blocked as vb)
+    from torcwa_tpu_torch.ops.hess_blocked import hessenberg_blocked
+    dev = torch.device('cuda', 0)
+    _, A = cs.wave_matrices(torch, tp, cs.ORDER_L, cs.LAM_L,
+                            math.radians(cs.WELL_POSED_DEG), torch.float32,
+                            dev)
+    A = A[0].contiguous()
+    n = A.shape[-1]
+    H, Q = hessenberg_blocked(A)
+    T, _ = sm.schur_ms(H, Q, m=eq.large_shifts(n),
+                       defl_mult=eq.LARGE_DEFL_MULT)
+    dmin = vb.pivot_floor(T)
+    blocks = [(max(r1 - vb.MAX_BLOCK, 0), r1)
+              for r1 in range(n, 0, -vb.MAX_BLOCK)]
+    Y = vb.tri_vectors_blocked(T)
+    Ss = [(T[r0:r1, r1:] @ Y[r1:]).contiguous() for r0, r1 in blocks]
+
+    def all_blocks():
+        Yb = torch.eye(n, dtype=T.dtype, device=dev)
+        for (r0, r1), S in zip(blocks, Ss):
+            vb.tri_vectors_block(T, S, dmin, Yb, r0, r1)
+
+    out = dict(dir=label, card=cs.smi_line(), stage='tri_vectors_blocked',
+               n=n, launches=len(blocks),
+               T_checksum=float(T.abs().double().sum()),
+               Y_checksum=float(Y.abs().double().sum()))
+    out['ms'] = {'in-block kernels': cs.cuda_ms(torch, all_blocks, reps=3),
+                 'tri_vectors_blocked with GEMMs': cs.cuda_ms(
+                     torch, lambda: vb.tri_vectors_blocked(T), reps=3),
+                 'torch.linalg.eig(T)': cs.cuda_ms(
+                     torch, lambda: torch.linalg.eig(T), reps=1)}
+    print(json.dumps(out), flush=True)
+
+
+def one_unitarity(label):
+    """--stage unitarity in the checkout that is the working directory."""
+    sys.path.insert(0, os.getcwd())
+    import torch
+    import chip_smoke as cs
+    import torcwa_tpu_torch as tp
+    from torcwa_tpu_torch.ops import (eig_kernels as ek, eig_qr as eq,
+                                      schur_ms as sm, schur_qr_baed as sb,
+                                      schur_qr_ms as sq)
+    from torcwa_tpu_torch.ops.hess_blocked import hessenberg_blocked
+    dev = torch.device('cuda', 0)
+    inc = math.radians(cs.WELL_POSED_DEG)
+    out = dict(dir=label, card=cs.smi_line(), stage='unitarity')
+
+    def forms(A):
+        f = {'routed': ek.hessenberg(A)}
+        if hasattr(ek, 'hessenberg_cluster'):
+            f['one block'] = ek.hessenberg(A, cluster=0)
+        f['plain float32'] = ek.hessenberg_plain(A)
+        H, Q = ek.hessenberg_plain(A.to(torch.complex128))
+        f['float64 rounded'] = (H.to(A.dtype), Q.to(A.dtype))
+        return f
+
+    _, A = cs.wave_matrices(torch, tp, (6, 6), cs.LAM_L, inc, torch.float32,
+                            dev)
+    A = A.contiguous()
+    out['schur_qr_ms order 6'] = {
+        k: cs.schur_quality(torch, A[0], *sq.schur_qr_ms(
+            H[0], Q[0], m=cs.MS_M))[1] for k, (H, Q) in forms(A).items()}
+    _, A = cs.wave_matrices(torch, tp, (7, 7), cs.LAMS, inc, torch.float32,
+                            dev)
+    A = A.contiguous()
+    out['schur_qr_baed order 7, worst lane'] = {}
+    for k, (H, Q) in forms(A).items():
+        T, Z = sb.schur_qr_baed(H, Q)
+        out['schur_qr_baed order 7, worst lane'][k] = max(
+            cs.schur_quality(torch, A[b], T[b], Z[b])[1]
+            for b in range(A.shape[0]))
+    per_seed = []
+    for seed in range(640, 652):
+        A = cs.rand_c64(torch, 640, seed, dev)
+        H, Q = hessenberg_blocked(A)
+        T, Z = sm.schur_ms(H, Q, m=eq.large_shifts(640),
+                           defl_mult=eq.LARGE_DEFL_MULT)
+        per_seed.append(cs.schur_quality(torch, A, T, Z)[1])
+    out['schur_ms n=640, seeds 640-651'] = per_seed
+    print(json.dumps(out), flush=True)
+
+
 def main(args):
     import torch
     if not torch.cuda.is_available():
         print('qr_compare: CUDA is not available', file=sys.stderr)
         return 2
-    flags = [a for a in args if a == '--fmad=false']
+    stage = 'schur_qr'
+    if '--stage' in args:
+        i = args.index('--stage')
+        stage = args[i + 1]
+        args = args[:i] + args[i + 2:]
+    if stage not in STAGES:
+        print(f'qr_compare: unknown stage {stage!r}', file=sys.stderr)
+        return 2
+    flags = [a for a in args if a in ('--fmad=false', '--split')]
     me = os.path.abspath(__file__)
     for d in [a for a in args if a not in flags] or ['.']:
-        res = subprocess.run([sys.executable, me, '--one', d, *flags],
+        res = subprocess.run([sys.executable, me, '--one', d, stage, *flags],
                              cwd=os.path.abspath(d))
         if res.returncode:
             return res.returncode
     return 0
 
 
+STAGES = ('schur_qr', 'hessenberg', 'tri_vectors_blocked', 'unitarity')
+
 if __name__ == '__main__':
     if sys.argv[1:2] == ['--one']:
-        one(sys.argv[2], '--fmad=false' in sys.argv[3:])
+        label, stage = sys.argv[2], sys.argv[3]
+        if stage == 'hessenberg':
+            one_hessenberg(label, '--split' in sys.argv[4:])
+        elif stage == 'tri_vectors_blocked':
+            one_tri_vectors_blocked(label)
+        elif stage == 'unitarity':
+            one_unitarity(label)
+        else:
+            one(label, '--fmad=false' in sys.argv[4:])
     else:
         sys.exit(main(sys.argv[1:]))

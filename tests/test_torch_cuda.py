@@ -62,6 +62,52 @@ def test_hessenberg_kernel_matches_plain(dev):
     assert float(res.max()) <= 1e-5
 
 
+# float32 forward error of the reduction on random matrices grows with n:
+# at n = 338 and 450 the plain float32 version sits 2.6e-4 to 8.3e-4
+# ||A||_2 from the float64 one, per lane (CPU runs of hessenberg_plain),
+# above the 1e-4 ||A||_2 that n = 40 is held to.  There the kernel is held,
+# element by element, to HESS_ROOM times the plain float32 version's own
+# distance from the float64 reduction of the same matrices (the cluster's
+# rank-ordered sums of u, modelled by hessenberg_plain(A, cluster=16), sat
+# 2.9x the plain version's distance on one lane at n = 450 in a CPU run)
+HESS_ROOM = 8
+
+
+@pytest.mark.parametrize('n,cluster,path', [
+    (338, None, 'cluster 8, Q in device memory'),
+    (450, None, 'cluster 8, Q in device memory'),
+    (578, None, 'cluster 16, Q in device memory'),
+    (338, 16, 'cluster 16, Q in shared memory'),
+    (ek.CLUSTER_MAX_N + 1, None, 'one block')])
+def test_hessenberg_kernel_paths_match_plain(dev, n, cluster, path):
+    B8 = 8 if n <= 450 else 2
+    rng = np.random.default_rng(n)
+    a = rng.standard_normal((B8, n, n)) + 1j * rng.standard_normal((B8, n, n))
+    A = torch.as_tensor(a.astype(np.complex64), device=dev)
+    p = ek.hessenberg_cluster(n, cluster)
+    assert (p == 0) == (path == 'one block')
+    if p:
+        info = ek.hessenberg_cluster_info(n, cluster)
+        assert info['cluster'] == p and info['active_clusters'] >= 1
+        assert info['q_in_smem'] == ('shared' in path)
+    H, Q = _launch('hessenberg', ek.hessenberg, A, cluster=cluster)
+    Hp, Qp = ek.hessenberg_plain(A)
+    H64, Q64 = ek.hessenberg_plain(A.to(torch.complex128))
+    a2 = torch.linalg.matrix_norm(A.to(torch.complex128), ord=2)
+
+    def dist(X, Y):
+        return (X.to(torch.complex128) - Y).abs().amax((-2, -1))
+
+    assert float((dist(H, H64) / a2).max()) \
+        <= HESS_ROOM * float((dist(Hp, H64) / a2).max())
+    assert float(dist(Q, Q64).max()) <= HESS_ROOM * float(dist(Qp, Q64).max())
+    assert bool((torch.tril(H, -2) == 0).all())
+    res = torch.linalg.matrix_norm(Q @ H @ Q.mH - A) / torch.linalg.matrix_norm(A)
+    assert float(res.max()) <= 1e-5
+    eye = torch.eye(n, dtype=A.dtype, device=dev)
+    assert float((Q.mH @ Q - eye).abs().max()) <= 1e-5
+
+
 def test_schur_qr_kernel_matches_plain(dev):
     # eigenvalue sets within 1e-4 of the spectral radius (the kernel and
     # the plain version chase round-off in another order), Schur residual
@@ -325,6 +371,40 @@ def test_tri_vectors_blocked_kernel_matches_plain(dev, n):
     assert float((Y - Y1).abs().max()) <= 1e-4 * scale
 
 
+def test_tri_vectors_blocked_kernel_at_the_route_block(dev):
+    # n = 640, block 128: more columns than one CTA's 32 warps, a CTA's
+    # warps looping over columns, columns inside and right of each block;
+    # against the plain version in both orders (the kernel's is
+    # by_columns) and the batched kernel, 1e-4 relative on separated
+    # columns
+    from torcwa_tpu_torch.ops import eig_qr as eq
+    n = 640
+    H, Q = hessenberg_blocked(_rand1(dev, n, 640))
+    T, _ = sm.schur_ms(H, Q, m=eq.large_shifts(n),
+                       defl_mult=eq.LARGE_DEFL_MULT)
+    before = ek.LAUNCHES['tri_vectors_blocked']
+    Y = vb.tri_vectors_blocked(T)
+    torch.cuda.synchronize()
+    assert ek.LAUNCHES['tri_vectors_blocked'] == before + -(-n // vb.MAX_BLOCK)
+    dmin = vb.pivot_floor(T)
+    w = torch.diagonal(T)
+    gap = (w[:, None] - w[None, :]).abs() + torch.eye(n, device=dev) * 1e30
+    sep = gap.amin(-1) > 1e-3 * w.abs().max()
+    assert int(sep.sum()) > n // 2
+    Y1 = ek.tri_vectors(T[None].contiguous())[0]
+    for by_columns in (False, True):
+        Yp = torch.eye(n, dtype=T.dtype, device=dev)
+        for r1 in range(n, 0, -vb.MAX_BLOCK):
+            r0 = max(r1 - vb.MAX_BLOCK, 0)
+            vb.tri_vectors_block_plain(T, T[r0:r1, r1:] @ Yp[r1:], dmin, Yp,
+                                       r0, r1, by_columns=by_columns)
+        scale = float(Yp.abs().max())
+        assert float(((Y - Yp).abs().amax(0) * sep).max()) <= 1e-4 * scale
+    assert float(((Y - Y1).abs().amax(0) * sep).max()) <= 1e-4 * scale
+    assert bool((torch.diagonal(Y) == 1).all())
+    assert float(torch.tril(Y, -1).abs().max()) == 0
+
+
 def test_large_route_on_the_card_solves_the_eigenproblem(dev, monkeypatch):
     # eig_qr through hessenberg_blocked -> schur_ms -> tri_vectors_blocked
     from torcwa_tpu_torch.ops import eig_qr as eq
@@ -511,3 +591,56 @@ def test_eig_small_through_the_batched_stages_on_the_card(dev):
         assert bool(torch.isfinite(torch.view_as_real(w)).all())
         res = (A @ V - V * w[..., None, :]).abs().amax((-2, -1))
         assert bool((res <= 1e-4 * A.abs().amax((-2, -1))).all())
+
+
+# ---------------------------------------------------------------------------
+# two faults of the multishift stages, held where they showed
+# ---------------------------------------------------------------------------
+
+def _wave(dev, order, n_lam):
+    """chip_smoke.py's wave matrices at 10 deg: the first n_lam of its
+    wavelengths, or its one wavelength of the order-20 solve (500 nm)."""
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import math
+    import chip_smoke as cs
+    import torcwa_tpu_torch as tp
+    lams = cs.LAMS[:n_lam] if n_lam else cs.LAM_L
+    _, A = cs.wave_matrices(torch, tp, (order, order), lams,
+                            math.radians(cs.WELL_POSED_DEG), torch.float32,
+                            dev)
+    return cs, A.contiguous()
+
+
+def test_schur_qr_ms_rotations_from_tiny_carries_stay_unitary(dev):
+    # the order-6 wave matrix (500 nm, 10 deg) in Hessenberg form by the
+    # float64 reduction rounded to complex64: a chase carry there had
+    # |x|^2 + |y|^2 below float32's normal range, and the unscaled Givens of
+    # csrc/common.cuh left Z unitary to 1.5e-2 only; scaled first, Z is
+    # unitary to float32 round-off (chip_smoke.py phase 10's 1e-5)
+    from torcwa_tpu_torch.ops import schur_qr_ms as sq
+    cs, A = _wave(dev, 6, 0)
+    H, Q = ek.hessenberg_plain(A.to(torch.complex128))
+    H, Q = H.to(A.dtype), Q.to(A.dtype)
+    T, Z, st = sq.schur_qr_ms(H[0], Q[0], m=cs.MS_M, return_stats=True)
+    res, orth, tri = cs.schur_quality(torch, A[0], T, Z)
+    assert int(st[0]) == 0 and tri
+    assert res <= 1e-5 and orth <= 1e-5
+
+
+def test_schur_qr_baed_aed_rotations_keep_z_unitary(dev):
+    # the order-7 wave matrices (B = 8, n = 450, 10 deg) through the routed
+    # Hessenberg reduction: with the AED window's rotations formed in
+    # float32, Z came out unitary to 1.1e-5 - 1.2e-5 on some lane for the
+    # Hessenberg forms of the cluster kernel, the plain float32 reduction and
+    # the float64 one rounded; its plain version forms them in float64 and
+    # rounds them (schur_ms._givens_scalar), as csrc/ms_aed.cuh now does,
+    # and every lane holds chip_smoke.py phase 13's 1e-5
+    from torcwa_tpu_torch.ops import schur_qr_baed as sb
+    cs, A = _wave(dev, 7, 8)
+    H, Q = ek.hessenberg(A)
+    T, Z, st = sb.schur_qr_baed(H, Q, return_stats=True)
+    assert bool((st[0] == 0).all())
+    for b in range(A.shape[0]):
+        res, orth, tri = cs.schur_quality(torch, A[b], T[b], Z[b])
+        assert tri and res <= 1e-5 and orth <= 1e-5

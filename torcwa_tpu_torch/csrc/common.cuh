@@ -105,8 +105,23 @@ struct Givens {
   float2 s;
 };
 
-// [[c, s], [-conj(s), c]] [x; y] = [r; 0], c real.
+// [[c, s], [-conj(s), c]] [x; y] = [r; 0], c real.  x and y are first
+// scaled by a power of two that brings their largest part into [0.5, 1):
+// exact, so the rotation is bit for bit the unscaled formula's wherever no
+// square underflows, and a unitary one where |x|^2 + |y|^2 would fall below
+// the normal range (there the unscaled formula rounds the squares to a few
+// bits, and c^2 + |s|^2 misses 1 by as much as ~1e-2).
 __device__ __forceinline__ Givens givens(float2 x, float2 y) {
+  const float mx = fmaxf(fmaxf(fabsf(x.x), fabsf(x.y)),
+                         fmaxf(fabsf(y.x), fabsf(y.y)));
+  if (mx > 0.f && mx < 1.f) {
+    int e;
+    frexpf(mx, &e);
+    // 2^-e in two factors: for mx below 2^-128 it overflows a float
+    const float f1 = ldexpf(1.f, -e / 2), f2 = ldexpf(1.f, -e - (-e / 2));
+    x = c_scale(f2, c_scale(f1, x));
+    y = c_scale(f2, c_scale(f1, y));
+  }
   const float ax2 = c_abs2(x), ay2 = c_abs2(y);
   const float dn = sqrtf(ax2 + ay2);
   const float ax = sqrtf(ax2);
@@ -121,6 +136,29 @@ __device__ __forceinline__ Givens givens(float2 x, float2 y) {
   if (ax2 == 0.f && ay2 > 0.f) {
     g.c = 0.f;
     g.s = c_make(1.f, 0.f);
+  }
+  return g;
+}
+
+// The rotation of givens() formed in double precision and rounded to float,
+// as the plain versions form the AED window QR's rotations
+// (ops/schur_ms.py: _givens_scalar): c^2 + |s|^2 is then 1 to the rounding
+// of c and s alone.
+__device__ __forceinline__ Givens givens_rounded(float2 x, float2 y) {
+  const double xr = x.x, xi = x.y, yr = y.x, yi = y.y;
+  const double ax2 = xr * xr + xi * xi, ay2 = yr * yr + yi * yi;
+  const double dn = sqrt(ax2 + ay2), ax = sqrt(ax2);
+  Givens g;
+  g.c = 1.f;
+  g.s = c_make(0.f, 0.f);
+  if (ax2 == 0.0 && ay2 > 0.0) {
+    g.c = 0.f;
+    g.s = c_make(1.f, 0.f);
+  } else if (ax > 0.0 && dn > 0.0) {
+    const double den = ax * dn;
+    g.c = (float)(ax / dn);
+    g.s = c_make((float)((xr * yr + xi * yi) / den),
+                 (float)((xi * yr - xr * yi) / den));
   }
   return g;
 }

@@ -12,6 +12,8 @@
 //  * a single-shift Schur form of the window with accumulated vectors:
 //    Wilkinson shift with the complex branch open, an exceptional shift
 //    every 13th iteration, deflation at eps (|d| + |d'|), budget 3 kw + 40;
+//    its rotations formed in double and rounded (givens_rounded), as the
+//    plain versions form them;
 //  * the spike beta Qm[:, 0]; the bottom run of converged lanes (index >=
 //    the window's own final bottom) with |spike_i| <= defl_mult eps
 //    max(|T_ii|, max|W|) deflates, ku lanes stay.  max|W| is taken over the
@@ -147,7 +149,7 @@ __device__ AedResult aed_window(float2* H, int n, int lo, int hi, bool exc,
     const int mlo = s_mlo;
     if (mhi <= 0 || it >= max_it) break;
     for (int k = mlo; k < mhi; ++k) {
-      const Givens g = givens(s_x, s_y);
+      const Givens g = givens_rounded(s_x, s_y);
       const float c = g.c;
       const float2 sg = g.s;
       // rows k, k+1 of W (columns >= k-1) and of Qm

@@ -10,58 +10,126 @@
 // D[j, m] = lambda_j - lambda_m floored in modulus at dmin[m] (an exactly
 // zero D becomes dmin[m]), the pivot guard of tri_vectors.cu.
 //
-// Design: columns are independent, so one thread owns one column m for
-// the whole block and keeps its p entries of Y in a private array; blocks
-// of kThreads columns cover m > r0.  The p x p triangle of T is staged in
-// shared memory once per block of threads and read as broadcasts.  The
-// TPU kernel's padding to a block multiple and its one-hot lane gathers
-// are not carried over: r0 and p arrive as arguments.
+// Design: a warp per column m, the recurrence by columns.  Lane L keeps
+// the running sums s_i of the rows i = L, L + 32, L + 64, L + 96 of the
+// block in registers, seeded from S (and from T[i, m - r0] where column m
+// lies in the block: Y's unit entry).  For i from the last row m may use
+// down to 0, the lane that owns row i forms y_i = -s_i / D_i, writes it and
+// broadcasts it with a shuffle, and every lane subtracts T[l, i] y_i from
+// its rows l < i (s_l += T[l, i] y_i): the sums of the row-oriented
+// recurrence, taken in descending l.  Row slots are compile-time indices
+// (slot<Q> below), so nothing is indexed at run time and nothing goes to
+// local memory.  The block's upper triangle of T is staged once per CTA
+// in shared memory, packed by columns (column i at i (i + 1) / 2), so a
+// warp reads a column of it on consecutive addresses.  The grid has at most
+// one CTA of 32 warps per SM, and the warps loop over the columns.
 //
-// What bounds it on an H100: each thread runs p^2/2 dependent complex
-// multiply-adds (p = 128: 8192), and at most n / kThreads blocks are in
-// flight, so latency of one thread's chain, not bandwidth: the function
-// reads p x p of T, p x n of S and writes p x n of Y, ~7 MB at n = 3362.
+// What bounds it on an H100: each warp's chain of p dependent steps (one
+// complex division by one lane, one shuffle, up to p / 32 FFMAs a lane),
+// ~60 us a launch on average at n = 3362 (qr_compare.py --stage
+// tri_vectors_blocked); a half warp per column, two columns a warp spread
+// over every SM, ran slower.  The function reads p (p + 1) / 2 of T
+// and p x n of S and writes p x n of Y, ~7 MB at n = 3362.
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kThreads = 1024;
+constexpr int kWarps = kThreads / 32;
 constexpr int kMaxBlock = 128;  // ops/vec_blocked.py: MAX_BLOCK
+constexpr int kSlots = kMaxBlock / 32;
 
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ int tri_col(int i) { return i * (i + 1) / 2; }
+
+// The steps i = 32 Q + l, l from lmax down to 0: rows of slot Q.
+template <int Q>
+__device__ __forceinline__ void slot(float2 (&s)[kSlots],
+                                     const float2 (&d)[kSlots],
+                                     const float (&dd)[kSlots],
+                                     const float2* __restrict__ tri,
+                                     float2* __restrict__ Y, int n, int r0,
+                                     int m, int top, int lane) {
+  if (32 * Q > top) return;
+  const int lmax = min(31, top - 32 * Q);
+  for (int l = lmax; l >= 0; --l) {
+    const int i = 32 * Q + l;
+    float2 y = c_make(0.f, 0.f);
+    if (lane == l) {
+      y = c_make(-(s[Q].x * d[Q].x + s[Q].y * d[Q].y) / dd[Q],
+                 -(s[Q].y * d[Q].x - s[Q].x * d[Q].y) / dd[Q]);
+      Y[(size_t)(r0 + i) * n + m] = y;
+    }
+    y.x = __shfl_sync(0xffffffffu, y.x, l);
+    y.y = __shfl_sync(0xffffffffu, y.y, l);
+    const float2* tc = tri + tri_col(i);
+#pragma unroll
+    for (int q = 0; q <= Q; ++q) {
+      const int row = 32 * q + lane;
+      if (row < i) s[q] = c_add(s[q], c_mul(tc[row], y));
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
 tri_vectors_block_kernel(const float2* __restrict__ T,
                          const float2* __restrict__ S,
                          const float* __restrict__ dmin,
                          float2* __restrict__ Y, int n, int r0, int p) {
-  extern __shared__ float2 tb[];  // tb[i * p + l] = T[r0 + i, r0 + l]
-  for (int e = threadIdx.x; e < p * p; e += kThreads)
-    tb[e] = T[(size_t)(r0 + e / p) * n + r0 + e % p];
+  extern __shared__ float2 tri[];  // tri[tri_col(i) + l] = T[r0 + l, r0 + i]
+  for (int e = threadIdx.x; e < p * p; e += kThreads) {
+    const int l = e / p, i = e % p;
+    if (l <= i) tri[tri_col(i) + l] = T[(size_t)(r0 + l) * n + r0 + i];
+  }
   __syncthreads();
 
-  const int m = r0 + 1 + blockIdx.x * kThreads + threadIdx.x;
-  if (m >= n) return;
-  const float2 lm = T[(size_t)m * n + m];
-  const float dm = dmin[m];
-  float2 y[kMaxBlock];
-  for (int i = 0; i < p; ++i) y[i] = c_make(r0 + i == m ? 1.f : 0.f, 0.f);
-
-  const int jtop = min(m - 1, r0 + p - 1) - r0;  // rows j < m only
-  for (int i = jtop; i >= 0; --i) {
-    float2 s = S[(size_t)i * n + m];
-    for (int l = i + 1; l < p; ++l) s = c_add(s, c_mul(tb[i * p + l], y[l]));
-    float2 d = c_sub(tb[i * p + i], lm);
-    const float dabs = sqrtf(c_abs2(d));
-    if (dabs < dm) {
-      if (dabs > 0.f) d = c_scale(dm / dabs, d);
-      else d = c_make(dm, 0.f);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int m = r0 + 1 + blockIdx.x * kWarps + warp; m < n;
+       m += gridDim.x * kWarps) {
+    const float2 lm = T[(size_t)m * n + m];
+    const float dm = dmin[m];
+    const int mloc = m - r0;                 // >= 1
+    const int top = min(mloc - 1, p - 1);    // rows j < m only
+    float2 s[kSlots], d[kSlots];
+    float dd[kSlots];
+#pragma unroll
+    for (int q = 0; q < kSlots; ++q) {
+      const int i = 32 * q + lane;
+      s[q] = c_make(0.f, 0.f);
+      d[q] = c_make(1.f, 0.f);
+      dd[q] = 1.f;
+      if (i <= top) {
+        s[q] = S[(size_t)i * n + m];
+        if (mloc < p) s[q] = c_add(s[q], tri[tri_col(mloc) + i]);  // Y[m,m]=1
+        float2 dq = c_sub(tri[tri_col(i) + i], lm);
+        const float dabs = sqrtf(c_abs2(dq));
+        if (dabs < dm) {
+          if (dabs > 0.f) dq = c_scale(dm / dabs, dq);
+          else dq = c_make(dm, 0.f);
+        }
+        float dden = c_abs2(dq);
+        if (!(dden > 0.f)) dden = 1.f;
+        d[q] = dq;
+        dd[q] = dden;
+      }
     }
-    float dden = c_abs2(d);
-    if (!(dden > 0.f)) dden = 1.f;
-    y[i] = c_make(-(s.x * d.x + s.y * d.y) / dden,
-                  -(s.y * d.x - s.x * d.y) / dden);
-    Y[(size_t)(r0 + i) * n + m] = y[i];
+    static_assert(kSlots == 4, "slot<> calls below assume 4 slots");
+    slot<3>(s, d, dd, tri, Y, n, r0, m, top, lane);
+    slot<2>(s, d, dd, tri, Y, n, r0, m, top, lane);
+    slot<1>(s, d, dd, tri, Y, n, r0, m, top, lane);
+    slot<0>(s, d, dd, tri, Y, n, r0, m, top, lane);
   }
+}
+
+int sm_count() {
+  static int count = 0;
+  if (count == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
+    if (count <= 0) count = 1;
+  }
+  return count;
 }
 
 }  // namespace
@@ -73,11 +141,11 @@ extern "C" int torcwa_tri_vectors_block_c64(const void* T, const void* S,
     return (int)cudaErrorInvalidValue;
   const int cols = n - r0 - 1;
   if (cols <= 0) return 0;
-  const size_t smem = (size_t)p * p * sizeof(float2);
+  const size_t smem = (size_t)p * (p + 1) / 2 * sizeof(float2);
   cudaError_t err = set_smem(tri_vectors_block_kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  tri_vectors_block_kernel<<<(cols + kThreads - 1) / kThreads, kThreads, smem,
-                             (cudaStream_t)stream>>>(
+  const int grid = min(sm_count(), (cols + kWarps - 1) / kWarps);
+  tri_vectors_block_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
       (const float2*)T, (const float2*)S, (const float*)dmin, (float2*)Y, n,
       r0, p);
   return (int)cudaGetLastError();

@@ -23,7 +23,8 @@ from .eig_kernels import LAUNCHES, _consts, _raise_on, _stream
 __all__ = ['tri_vectors_blocked', 'tri_vectors_block',
            'tri_vectors_block_plain', 'pivot_floor', 'MAX_BLOCK']
 
-# the kernel keeps a block's column of Y in a fixed per-thread array
+# rows of a block: a lane of the kernel keeps the sums of MAX_BLOCK / 32
+# of them in registers
 MAX_BLOCK = 128
 
 
@@ -36,14 +37,24 @@ def pivot_floor(T):
     return torch.clamp(eps * torch.maximum(lam.abs(), tnorm), min=smlnum)
 
 
-def tri_vectors_block_plain(T, S, dmin, Y, r0, r1):
+def tri_vectors_block_plain(T, S, dmin, Y, r0, r1, by_columns=False):
     """Rows [r0, r1) of Y in place, from S (r1 - r0, n) and the rows of Y
-    below r1; Y must hold the identity in rows [r0, r1)."""
+    below r1; Y must hold the identity in rows [r0, r1).
+
+    Row by row, each row's sum over the rows below it in ascending order;
+    with ``by_columns`` in the order of csrc/tri_vectors_blocked.cu: sums
+    seeded from S, and each y_j, once formed, added into the sums of the
+    rows above it (Y's identity rows with them), so every sum is taken in
+    descending order."""
     n = T.shape[-1]
     lam = torch.diagonal(T)
     idx = torch.arange(n, device=T.device)
+    sums = S.clone() if by_columns else None
     for j in range(r1 - 1, r0 - 1, -1):
-        s = S[j - r0] + T[j, j + 1:r1] @ Y[j + 1:r1]
+        if by_columns:
+            s = sums[j - r0]
+        else:
+            s = S[j - r0] + T[j, j + 1:r1] @ Y[j + 1:r1]
         d = lam[j] - lam
         dabs = d.abs()
         small = dabs < dmin
@@ -54,6 +65,8 @@ def tri_vectors_block_plain(T, S, dmin, Y, r0, r1):
         dden = torch.where(dden > 0, dden, 1.)
         q = -(s * d.conj()) / dden
         Y[j] = torch.where(idx > j, q, Y[j])
+        if by_columns:
+            sums[:j - r0] += T[r0:j, j, None] * Y[j]
     return Y
 
 
