@@ -39,8 +39,8 @@ Phases (each prints its results; any failure exits non-zero):
      pairs): the multishift QR converges and the forward |t_xx|^2 agrees
      with the oracle
   7. times with CUDA events (schur_qr beside the kernel it replaced;
-     hessenberg at n = 338 and 450 beside one block per matrix, with its
-     cluster size and the clusters the card runs at once; torch.linalg.eig
+     hessenberg at n = 338 and 450, with its cluster size and the
+     clusters the card runs at once; torch.linalg.eig
      of the triangular factor beside the two vectors kernels); the two
      routes at n = 338, 450, 578 and 882
   8. torch.profiler over one order-6 sweep and one order-20 solve: device
@@ -275,8 +275,7 @@ def hessenberg_path(ek, n):
     if info is None:
         return 'one block of 1024 threads per matrix'
     return (f'a cluster of {info["cluster"]} CTAs per matrix, '
-            f'{info["smem_bytes"]} bytes of shared memory a CTA, Q in '
-            f'{"shared" if info["q_in_smem"] else "device"} memory, '
+            f'{info["smem_bytes"]} bytes of shared memory a CTA, '
             f'{info["active_clusters"]} clusters at once')
 
 
@@ -1995,16 +1994,13 @@ def main():
         return bound(3 * B * n * n * C64, B * (7 / 3) * n ** 3 * 8)
 
     bounds['hessenberg'] = hess_bound(B6, n6)
-    # the order-7 batch at 10 deg (n = 450), and both sizes in one block per
-    # matrix (the kernel before the cluster), with the path each takes
+    # the order-7 batch at 10 deg (n = 450), with the path each size takes
     _, A7 = wave_matrices(torch, tp, (7, 7), LAMS,
                           math.radians(WELL_POSED_DEG), torch.float32, dev)
     A7 = A7.contiguous()
     n7 = A7.shape[-1]
     hess = {'n450_ms': cuda_ms(torch, lambda: ek.hessenberg(A7)),
-            'n450_bound_ms': hess_bound(B6, n7)[0],
-            'one_block_ms': [cuda_ms(torch, lambda: ek.hessenberg(X, cluster=0))
-                             for X in (A6c, A7)]}
+            'n450_bound_ms': hess_bound(B6, n7)[0]}
     for nh in (n6, n7):
         info = ek.hessenberg_cluster_info(nh)
         hess[f'n{nh}_cluster'] = info and info['cluster']
@@ -2012,8 +2008,7 @@ def main():
     print(f'  hessenberg B=8: n = {n6} {times["hessenberg"][0]:.3f} ms on '
           f'{hessenberg_path(ek, n6)}; n = {n7} {hess["n450_ms"]:.3f} ms on '
           f'{hessenberg_path(ek, n7)} (bound {hess["n450_bound_ms"]:.4f} '
-          f'ms); one block per matrix {hess["one_block_ms"][0]:.3f} / '
-          f'{hess["one_block_ms"][1]:.3f} ms [{smi}]')
+          f'ms) [{smi}]')
     times['schur_qr'] = (cuda_ms(torch, lambda: ek.schur_qr(H6, Q6)),
                          rec_main['qr_plain_ms'],
                          'B=8 n=338; plain: one run, in phase 3')

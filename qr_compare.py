@@ -5,7 +5,7 @@ the blocked triangular eigenvectors (csrc/tri_vectors_blocked.cu).
 
     python3 qr_compare.py [--stage schur_qr|hessenberg|tri_vectors_blocked|
                                    unitarity]
-                          [--fmad=false] [--split] [DIR ...]
+                          [--fmad=false] [DIR ...]
                           (default: this checkout)
 
 Each DIR is the root of a checkout of this repository (an older commit's
@@ -18,20 +18,19 @@ card's name and power limit.
 
 * schur_qr: the order-6 wave matrices at 0 degrees (B = 8, n = 338; phase
   3) and the 10-degree batches at orders 6, 7, 8 (n = 338, 450, 578; phase
-  14), Hessenberg form by the checkout's ek.hessenberg; both entry points
-  (schur_qr, schur_qr_v2), whose C signature every checkout so far
-  shares; per-lane (hi, sweeps, rotations) read through the C entry
-  point.  With --fmad=false each checkout's csrc/schur_qr.cu is built
-  alone without FMA contraction and only the stats are read: two kernels
-  that apply the same operations in the same order then agree bit for bit.
-* hessenberg: ek.hessenberg on the B = 8 wave matrices at n = 338 (order
-  6, 0 degrees) and n = 450 (order 7, 10 degrees) as the checkout routes
-  it and, where the checkout has a cluster kernel, at every cluster size
-  that holds n and in one block, with the cluster's shared memory and the
-  clusters the card runs at once.  With --split the checkout's
-  csrc/hessenberg.cu is built alone with -DHESS_SPLIT, and one call of the
-  cluster kernel at each size gives the cycles that thread 0 of the first
-  CTA spends in each part of a step, averaged over the n - 2 steps.
+  14), each in two Hessenberg forms: the checkout's ek.hessenberg
+  ("routed", what its path feeds the stage) and the float64 plain
+  reduction rounded to complex64 ("common", the same input for every
+  checkout); both entry points (schur_qr, schur_qr_v2), whose C signature
+  every checkout so far shares; per-lane (hi, sweeps, rotations) read
+  through the C entry point.  With --fmad=false each checkout's
+  csrc/schur_qr.cu is built alone without FMA contraction and only the
+  stats are read: two kernels that apply the same operations in the same
+  order then agree bit for bit.
+* hessenberg: ek.hessenberg on the B = 8 wave matrices at n = 162 and 242
+  (orders 4 and 5, 0 degrees), n = 338 (order 6, 0 degrees) and n = 450
+  (order 7, 10 degrees), with the cluster size, shared memory and
+  clusters the card runs at once where the checkout reports them.
 * tri_vectors_blocked: the in-block kernel over all row blocks of the
   order-20 Schur factor (phase 6's T, 2N = 3362, S precomputed, as
   chip_smoke.py phase 7), the whole tri_vectors_blocked with its GEMMs
@@ -40,10 +39,10 @@ card's name and power limit.
   float32 round-off meets chip_smoke.py's 1e-5 gates: schur_qr_ms (m = 16)
   on the order-6 wave matrix at 500 nm (phase 10) and schur_qr_baed on the
   order-7 batch (phase 13), each from the Hessenberg form of the routed
-  reduction, one block a matrix (where the checkout has the cluster kernel),
-  the plain float32 reduction and the float64 one rounded to complex64;
-  schur_ms as the route calls it on random matrices at n = 640, seeds 640
-  to 651 (phase 4 takes seed 640).
+  reduction, the plain float32 reduction and the float64 one rounded to
+  complex64; schur_ms as the route calls it on random matrices at n = 640,
+  seeds 640 to 651 (phase 4 takes seed 640), and on the order-20 matrix
+  (phase 6) with the device time of its AED launches (torch.profiler).
 
 Needs a CUDA card; exits non-zero without one.
 """
@@ -89,62 +88,45 @@ def one(label, no_fma):
     for inc_name, order, inc_deg in CASES:
         _, A = cs.wave_matrices(torch, tp, (order, order), cs.LAMS,
                                 math.radians(inc_deg), torch.float32, dev)
-        H, Q = ek.hessenberg(A.contiguous())
-        B, n = H.shape[0], H.shape[-1]
-        for entry in ('schur_qr', 'schur_qr_v2'):
-            fn = getattr(ek, entry)
-            key = f'{entry} n={n} {inc_name}'
-            T = torch.empty_like(H)
-            Z = torch.empty_like(H)
-            st = torch.empty(B, 3, dtype=torch.int32, device=dev)
-            err = getattr(lib, f'torcwa_{entry}_c64')(
-                H.data_ptr(), Q.data_ptr(), T.data_ptr(), Z.data_ptr(),
-                st.data_ptr(), B, n, ek.MAX_ITER_FACTOR * n,
-                torch.cuda.current_stream().cuda_stream)
-            torch.cuda.synchronize()
-            if err:
-                raise RuntimeError(f'{key}: launch failed ({err})')
-            out['stats'][key] = st.tolist()
-            # the 0-degree batch is the stats' input only
-            if not no_fma and (inc_name == '10 deg' or n == 338):
-                out['ms'][key] = cs.cuda_ms(torch, lambda: fn(H, Q), reps=3)
+        A = A.contiguous()
+        H64, Q64 = ek.hessenberg_plain(A.to(torch.complex128))
+        forms = (('routed', ek.hessenberg(A)),
+                 ('common', (H64.to(A.dtype), Q64.to(A.dtype))))
+        for form, (H, Q) in forms:
+            B, n = H.shape[0], H.shape[-1]
+            for entry in ('schur_qr', 'schur_qr_v2'):
+                fn = getattr(ek, entry)
+                key = f'{entry} n={n} {inc_name} {form} H'
+                T = torch.empty_like(H)
+                Z = torch.empty_like(H)
+                st = torch.empty(B, 3, dtype=torch.int32, device=dev)
+                err = getattr(lib, f'torcwa_{entry}_c64')(
+                    H.data_ptr(), Q.data_ptr(), T.data_ptr(), Z.data_ptr(),
+                    st.data_ptr(), B, n, ek.MAX_ITER_FACTOR * n,
+                    torch.cuda.current_stream().cuda_stream)
+                torch.cuda.synchronize()
+                if err:
+                    raise RuntimeError(f'{key}: launch failed ({err})')
+                out['stats'][key] = st.tolist()
+                # the 0-degree batch is the stats' input only
+                if not no_fma and (inc_name == '10 deg' or n == 338):
+                    out['ms'][key] = cs.cuda_ms(torch, lambda: fn(H, Q),
+                                                reps=3)
     print(json.dumps(out), flush=True)
 
 
-SPLIT_PARTS = ('wait at barrier 1', 'v and beta', 'w, H -= v w',
-               'partial sums of H v', 'Q rows', 'wait at barrier 2',
-               'u, H -= u v^H')
-
-
-def _split_library(_build):
-    """The checkout's csrc/hessenberg.cu alone, built with -DHESS_SPLIT."""
-    out = _build.BUILD_ROOT / 'qr_compare_split' / 'libhessenberg.so'
-    out.parent.mkdir(parents=True, exist_ok=True)
-    subprocess.run([_build._nvcc(), '-gencode',
-                    'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
-                    '-Xcompiler', '-fPIC', '-shared', '-DHESS_SPLIT', '-o',
-                    str(out), str(_build.CSRC / 'hessenberg.cu')], check=True)
-    lib = ctypes.CDLL(str(out))
-    lib.torcwa_hessenberg_c64.argtypes = \
-        _build._SIGNATURES['torcwa_hessenberg_c64']
-    lib.torcwa_hessenberg_split.argtypes = [ctypes.c_void_p]
-    return lib
-
-
-def one_hessenberg(label, split):
+def one_hessenberg(label):
     """--stage hessenberg in the checkout that is the working directory."""
     sys.path.insert(0, os.getcwd())
     import torch
     import chip_smoke as cs
     import torcwa_tpu_torch as tp
-    from torcwa_tpu_torch.ops import _build, eig_kernels as ek
+    from torcwa_tpu_torch.ops import eig_kernels as ek
     dev = torch.device('cuda', 0)
     out = dict(dir=label, card=cs.smi_line(), stage='hessenberg', ms={},
-               clusters={}, residual={}, split_cycles_per_step={})
-    # only a checkout with the cluster kernel records its split
-    lib = (_split_library(_build)
-           if split and hasattr(ek, 'hessenberg_cluster') else None)
-    for inc_name, order, inc_deg in CASES[:3:2]:
+               clusters={}, residual={})
+    for inc_name, order, inc_deg in (('0 deg', 4, 0.), ('0 deg', 5, 0.),
+                                     *CASES[:3:2]):
         _, A = cs.wave_matrices(torch, tp, (order, order), cs.LAMS,
                                 math.radians(inc_deg), torch.float32, dev)
         A = A.contiguous()
@@ -153,32 +135,10 @@ def one_hessenberg(label, split):
         res = torch.linalg.matrix_norm(Q @ H @ Q.mH - A) \
             / torch.linalg.matrix_norm(A)
         out['residual'][f'n={n}'] = float(res.max())
-        out['ms'][f'n={n} {inc_name} routed'] = cs.cuda_ms(
+        out['ms'][f'n={n} {inc_name}'] = cs.cuda_ms(
             torch, lambda: ek.hessenberg(A), reps=3)
-        if not hasattr(ek, 'hessenberg_cluster'):
-            continue
-        for p in (ek.CLUSTER, ek.CLUSTER_WIDE, 0):
-            if p and not ek.hessenberg_cluster(n, p):
-                continue
-            if p:
-                out['clusters'][f'n={n} P={p}'] = \
-                    ek.hessenberg_cluster_info(n, p)
-            out['ms'][f'n={n} {inc_name} P={p}'] = cs.cuda_ms(
-                torch, lambda: ek.hessenberg(A, cluster=p), reps=3)
-            if lib is not None and p:
-                cycles = (ctypes.c_ulonglong * 8)()
-                lib.torcwa_hessenberg_split(cycles)
-                Hs, Qs = torch.empty_like(A), torch.empty_like(A)
-                err = lib.torcwa_hessenberg_c64(
-                    A.data_ptr(), Hs.data_ptr(), Qs.data_ptr(), A.shape[0],
-                    n, p, torch.cuda.current_stream().cuda_stream)
-                torch.cuda.synchronize()
-                lib.torcwa_hessenberg_split(cycles)
-                if err:
-                    raise RuntimeError(f'split build: launch failed ({err})')
-                out['split_cycles_per_step'][f'n={n} P={p}'] = {
-                    part: cycles[i] / (n - 2)
-                    for i, part in enumerate(SPLIT_PARTS)}
+        if hasattr(ek, 'hessenberg_cluster_info'):
+            out['clusters'][f'n={n}'] = ek.hessenberg_cluster_info(n)
     print(json.dumps(out), flush=True)
 
 
@@ -240,8 +200,6 @@ def one_unitarity(label):
 
     def forms(A):
         f = {'routed': ek.hessenberg(A)}
-        if hasattr(ek, 'hessenberg_cluster'):
-            f['one block'] = ek.hessenberg(A, cluster=0)
         f['plain float32'] = ek.hessenberg_plain(A)
         H, Q = ek.hessenberg_plain(A.to(torch.complex128))
         f['float64 rounded'] = (H.to(A.dtype), Q.to(A.dtype))
@@ -270,6 +228,16 @@ def one_unitarity(label):
                            defl_mult=eq.LARGE_DEFL_MULT)
         per_seed.append(cs.schur_quality(torch, A, T, Z)[1])
     out['schur_ms n=640, seeds 640-651'] = per_seed
+    _, A = cs.wave_matrices(torch, tp, cs.ORDER_L, cs.LAM_L, inc,
+                            torch.float32, dev)
+    A = A[0].contiguous()
+    H, Q = hessenberg_blocked(A)
+    cfg = dict(m=eq.large_shifts(A.shape[-1]), defl_mult=eq.LARGE_DEFL_MULT)
+    T, Z = sm.schur_ms(H, Q, **cfg)
+    out['schur_ms order 20'] = cs.schur_quality(torch, A, T, Z)[1]
+    ms, launches = cs.schur_ms_split(torch, sm, H, Q, cfg)['AED']
+    out['AED order 20'] = dict(ms=ms, launches=launches,
+                               ms_per_sweep=ms / launches)
     print(json.dumps(out), flush=True)
 
 
@@ -286,7 +254,7 @@ def main(args):
     if stage not in STAGES:
         print(f'qr_compare: unknown stage {stage!r}', file=sys.stderr)
         return 2
-    flags = [a for a in args if a in ('--fmad=false', '--split')]
+    flags = [a for a in args if a == '--fmad=false']
     me = os.path.abspath(__file__)
     for d in [a for a in args if a not in flags] or ['.']:
         res = subprocess.run([sys.executable, me, '--one', d, stage, *flags],
@@ -302,7 +270,7 @@ if __name__ == '__main__':
     if sys.argv[1:2] == ['--one']:
         label, stage = sys.argv[2], sys.argv[3]
         if stage == 'hessenberg':
-            one_hessenberg(label, '--split' in sys.argv[4:])
+            one_hessenberg(label)
         elif stage == 'tri_vectors_blocked':
             one_tri_vectors_blocked(label)
         elif stage == 'unitarity':

@@ -73,24 +73,25 @@ def test_hessenberg_kernel_matches_plain(dev):
 HESS_ROOM = 8
 
 
-@pytest.mark.parametrize('n,cluster,path', [
-    (338, None, 'cluster 8, Q in device memory'),
-    (450, None, 'cluster 8, Q in device memory'),
-    (578, None, 'cluster 16, Q in device memory'),
-    (338, 16, 'cluster 16, Q in shared memory'),
-    (ek.CLUSTER_MAX_N + 1, None, 'one block')])
-def test_hessenberg_kernel_paths_match_plain(dev, n, cluster, path):
+@pytest.mark.parametrize('n,path', [
+    (338, 'cluster 8'),
+    (450, 'cluster 8'),
+    (578, 'cluster 16'),
+    (ek.CLUSTER_MAX_N + 1, 'one block')])
+def test_hessenberg_kernel_paths_match_plain(dev, n, path):
     B8 = 8 if n <= 450 else 2
     rng = np.random.default_rng(n)
     a = rng.standard_normal((B8, n, n)) + 1j * rng.standard_normal((B8, n, n))
     A = torch.as_tensor(a.astype(np.complex64), device=dev)
-    p = ek.hessenberg_cluster(n, cluster)
-    assert (p == 0) == (path == 'one block')
+    p = ek.hessenberg_cluster(n)
+    assert path == (f'cluster {p}' if p else 'one block')
+    info = ek.hessenberg_cluster_info(n)
     if p:
-        info = ek.hessenberg_cluster_info(n, cluster)
         assert info['cluster'] == p and info['active_clusters'] >= 1
-        assert info['q_in_smem'] == ('shared' in path)
-    H, Q = _launch('hessenberg', ek.hessenberg, A, cluster=cluster)
+        assert info['smem_bytes'] == ek.cluster_smem_bytes(n, p)
+    else:
+        assert info is None
+    H, Q = _launch('hessenberg', ek.hessenberg, A)
     Hp, Qp = ek.hessenberg_plain(A)
     H64, Q64 = ek.hessenberg_plain(A.to(torch.complex128))
     a2 = torch.linalg.matrix_norm(A.to(torch.complex128), ord=2)

@@ -195,14 +195,19 @@ def test_cluster_order_on_an_order_2_wave_matrix_is_gauge_free_right():
 
 def test_hessenberg_dispatch_by_n():
     # a cluster of 8 where a CTA's columns of H fit in shared memory, else
-    # one of 16, else the one-block kernel; the wrapper's arithmetic mirrors
-    # the kernel's (csrc/hessenberg.cu: cluster_smem, kSmemPerBlock)
+    # one of 16, else the one-block kernel; hessenberg_cluster mirrors the
+    # choice of the C entry point (csrc/hessenberg.cu: cluster_size,
+    # cluster_smem, kSmemPerBlock)
     src = open(os.path.join(os.path.dirname(ek.__file__), '..', 'csrc',
                             'hessenberg.cu')).read()
     assert int(re.search(r'kSmemPerBlock = (\d+);', src).group(1)) \
         == ek.SMEM_PER_BLOCK
+    assert int(re.search(r'kCluster = (\d+);', src).group(1)) == ek.CLUSTER
     assert int(re.search(r'kMaxCluster = (\d+);', src).group(1)) \
         == ek.CLUSTER_WIDE
+    # every n the cluster holds fits the lanes' registers (n <= 32 kPerLane)
+    assert ek.CLUSTER_MAX_N <= 32 * int(
+        re.search(r'kPerLane = (\d+);', src).group(1))
     assert int(re.search(r'kQBatch = (\d+);', src).group(1)) == 4
     cap = ek.CLUSTER_MAX_N
     assert ek.cluster_smem_bytes(cap, ek.CLUSTER_WIDE) <= ek.SMEM_PER_BLOCK \
@@ -212,9 +217,6 @@ def test_hessenberg_dispatch_by_n():
     for n in (578, 640, cap):
         assert ek.hessenberg_cluster(n) == ek.CLUSTER_WIDE
     assert ek.hessenberg_cluster(cap + 1) == 0
-    assert ek.hessenberg_cluster(338, 16) == 16
-    assert ek.hessenberg_cluster(578, 8) == 0      # 8 CTAs cannot hold it
-    assert ek.hessenberg_cluster(338, 0) == 0
     # on a CPU tensor the wrapper is the plain version and launches nothing
     A = torch.as_tensor(_crand((1, 20, 20), 7))
     before = ek.LAUNCHES['hessenberg']

@@ -105,23 +105,8 @@ struct Givens {
   float2 s;
 };
 
-// [[c, s], [-conj(s), c]] [x; y] = [r; 0], c real.  x and y are first
-// scaled by a power of two that brings their largest part into [0.5, 1):
-// exact, so the rotation is bit for bit the unscaled formula's wherever no
-// square underflows, and a unitary one where |x|^2 + |y|^2 would fall below
-// the normal range (there the unscaled formula rounds the squares to a few
-// bits, and c^2 + |s|^2 misses 1 by as much as ~1e-2).
-__device__ __forceinline__ Givens givens(float2 x, float2 y) {
-  const float mx = fmaxf(fmaxf(fabsf(x.x), fabsf(x.y)),
-                         fmaxf(fabsf(y.x), fabsf(y.y)));
-  if (mx > 0.f && mx < 1.f) {
-    int e;
-    frexpf(mx, &e);
-    // 2^-e in two factors: for mx below 2^-128 it overflows a float
-    const float f1 = ldexpf(1.f, -e / 2), f2 = ldexpf(1.f, -e - (-e / 2));
-    x = c_scale(f2, c_scale(f1, x));
-    y = c_scale(f2, c_scale(f1, y));
-  }
+// The unscaled formula of givens().
+__device__ __forceinline__ Givens givens_unscaled(float2 x, float2 y) {
   const float ax2 = c_abs2(x), ay2 = c_abs2(y);
   const float dn = sqrtf(ax2 + ay2);
   const float ax = sqrtf(ax2);
@@ -137,6 +122,34 @@ __device__ __forceinline__ Givens givens(float2 x, float2 y) {
     g.c = 0.f;
     g.s = c_make(1.f, 0.f);
   }
+  return g;
+}
+
+// givens_unscaled of x and y scaled by the power of two that brings their
+// largest part into [0.5, 1).  Out of line: the chases that wait on
+// givens() take it almost never, and inlined it slows them.
+static __device__ __noinline__ Givens givens_scaled(float2 x, float2 y) {
+  const float mx = fmaxf(fmaxf(fabsf(x.x), fabsf(x.y)),
+                         fmaxf(fabsf(y.x), fabsf(y.y)));
+  if (!(mx > 0.f)) return givens_unscaled(x, y);
+  int e;
+  frexpf(mx, &e);
+  // 2^-e in two factors: for mx below 2^-128 it overflows a float
+  const float f1 = ldexpf(1.f, -e / 2), f2 = ldexpf(1.f, -e - (-e / 2));
+  return givens_unscaled(c_scale(f2, c_scale(f1, x)),
+                         c_scale(f2, c_scale(f1, y)));
+}
+
+// [[c, s], [-conj(s), c]] [x; y] = [r; 0], c real.  Where |x|^2 + |y|^2
+// falls below 2^-120, near or past the bottom of float's normal range
+// (2^-126), the rotation is formed again by givens_scaled: the scaling is
+// exact, and the rotation stays unitary there (unscaled, the squares keep
+// a few bits and c^2 + |s|^2 misses 1 by as much as ~1e-2).  The test
+// reads the sum the unscaled formula has already formed.
+__device__ __forceinline__ Givens givens(float2 x, float2 y) {
+  Givens g = givens_unscaled(x, y);
+  if (__builtin_expect(c_abs2(x) + c_abs2(y) < 0x1p-120f, 0))
+    g = givens_scaled(x, y);
   return g;
 }
 

@@ -10,7 +10,9 @@
 // of k are not touched by the row update: they hold only round-off that
 // the final mask zeroes.
 //
-// Two kernels, chosen by the caller (ops/eig_kernels.py: hessenberg, by n):
+// Two kernels, chosen by n in the C entry point (kCluster where a CTA's
+// columns of H fit its shared memory, else kMaxCluster, else one block;
+// ops/eig_kernels.py: hessenberg_cluster mirrors the choice):
 //
 // * hessenberg_cluster_kernel<P>: one thread-block cluster of P CTAs per
 //   matrix (P = 8, or 16, a non-portable size, where 8 cannot hold n), H
@@ -30,12 +32,11 @@
 //       rank order from every rank's shared memory, and H -= u v^H on its
 //       own columns; arrive at the cluster barrier.
 //   Q has only the right update Q -= (beta Q v) v^H, which needs v alone,
-//   so rank r owns the rows i = r + P t of Q.  It keeps the last kQBatch
-//   reflectors and applies them together every kQBatch steps, a warp a
-//   row held in registers (loaded and stored once for the batch), between
-//   its arrival at the second barrier and its wait on it.  Those rows sit
-//   in shared memory beside the columns of H where both fit (n <= 328 at
-//   P = 8, 461 at P = 16), else in place in device memory (L2-resident).
+//   so rank r owns the rows i = r + P t of Q, in place in device memory
+//   (L2-resident).  It keeps the last kQBatch reflectors and applies them
+//   together every kQBatch steps, a warp a row held in registers (loaded
+//   and stored once for the batch), between its arrival at the second
+//   barrier and its wait on it.
 // * hessenberg_kernel, for larger n: one 1024-thread block per matrix, H
 //   and Q in device memory, six phases a step separated by block
 //   barriers (two block reductions for the reflector, w with threads over
@@ -46,11 +47,10 @@
 // ~0.6 GFLOP per matrix at n = 338) or bytes.  Each of the n - 2 steps is a
 // chain of five parts of 2-4k cycles each (the reflector, the column
 // phase, the partial sums, Q's rows, the remote sums and column updates;
-// ~16k cycles a step at P = 8, n = 338: qr_compare.py --stage hessenberg
-// --split), of which the two cluster barriers take ~0.7k.  At P = 16 a
-// step is no shorter, and an H100 runs only 7 clusters of 16 at once
-// against 15 of 8, so a batch of 8 takes two waves: P = 8 wherever it
-// holds n.
+// ~16k cycles a step at P = 8, n = 338, from a clock64() build), of which
+// the two cluster barriers take ~0.7k.  At P = 16 a step is no shorter,
+// and an H100 runs only 7 clusters of 16 at once against 15 of 8, so a
+// batch of 8 takes two waves: P = 8 wherever it holds n.
 //
 #include <cooperative_groups.h>
 
@@ -67,7 +67,8 @@ constexpr int kMaxGroups = 32;  // row groups of the w phase
 // the cluster kernel
 constexpr int kCThreads = 512;
 constexpr int kCWarps = kCThreads / 32;
-constexpr int kMaxCluster = 16;
+constexpr int kCluster = 8;      // portable: wherever it holds n
+constexpr int kMaxCluster = 16;  // non-portable: the largest an H100 takes
 // lane-strided entries of a column or row a lane holds: n <= 32 kPerLane
 // (the largest n whose columns fit a cluster of 16 is 640)
 constexpr int kPerLane = 21;
@@ -78,13 +79,20 @@ constexpr size_t kSmemPerBlock = 232448;
 
 // Bytes of dynamic shared memory of one CTA of the cluster kernel: room
 // for ceil(n / P) columns of H, the last kQBatch reflectors v and their
-// beta (one float2 each), the partial sums of u and, with q_smem, as many
-// rows of Q as columns of H.  ops/eig_kernels.py mirrors the count without
-// Q (cluster_smem_bytes).
-size_t cluster_smem(int n, int P, bool q_smem) {
+// beta (one float2 each) and the partial sums of u.  ops/eig_kernels.py
+// mirrors the count (cluster_smem_bytes).
+size_t cluster_smem(int n, int P) {
   const size_t cols = (size_t)(n + P - 1) / P;
-  return ((q_smem ? 2 : 1) * cols * n + (kQBatch + 1) * (size_t)n + kQBatch) *
-         sizeof(float2);
+  return (cols * n + (kQBatch + 1) * (size_t)n + kQBatch) * sizeof(float2);
+}
+
+// The cluster size at n: kCluster where a CTA holds its columns of H, else
+// kMaxCluster where that does, else 0 (the one-block kernel).
+int cluster_size(int n) {
+  if (n > 32 * kPerLane) return 0;
+  if (cluster_smem(n, kCluster) <= kSmemPerBlock) return kCluster;
+  if (cluster_smem(n, kMaxCluster) <= kSmemPerBlock) return kMaxCluster;
+  return 0;
 }
 
 __device__ __forceinline__ void cluster_arrive() {
@@ -165,29 +173,10 @@ __device__ __forceinline__ void row_reflect(float2* x, const float2* vring,
   }
 }
 
-// Built with -DHESS_SPLIT (qr_compare.py --stage hessenberg --split), the
-// cluster kernel adds the clock64() cycles that thread 0 of the first CTA
-// spends in each part of a step to g_split[part], summed over the steps
-// (each record's own global update lands in the next part):
-// torcwa_hessenberg_split reads and clears them.
-#ifdef HESS_SPLIT
-__device__ unsigned long long g_split[8];
-#define SPLIT_START long long t_split = clock64();
-#define SPLIT(id)                                                      \
-  {                                                                    \
-    const long long u_split = clock64();                               \
-    if (tid == 0 && blockIdx.x == 0) g_split[id] += u_split - t_split; \
-    t_split = u_split;                                                 \
-  }
-#else
-#define SPLIT_START
-#define SPLIT(id)
-#endif
-
 template <int P>
 __global__ void __launch_bounds__(kCThreads, 1)
 hessenberg_cluster_kernel(const float2* __restrict__ A, float2* __restrict__ H,
-                          float2* __restrict__ Q, int n, int q_smem) {
+                          float2* __restrict__ Q, int n) {
   extern __shared__ float2 sh[];
   cg::cluster_group cluster = cg::this_cluster();
   const int r = (int)cluster.block_rank();
@@ -204,8 +193,7 @@ hessenberg_cluster_kernel(const float2* __restrict__ A, float2* __restrict__ H,
   float2* vring = Hs + (size_t)((n + P - 1) / P) * n;  // v of the last steps
   float2* part = vring + (size_t)kQBatch * n;          // sum over own cols
   float2* betas = part + n;
-  float2* qrows = q_smem ? betas + kQBatch : Q + (size_t)r * n;
-  const size_t qstride = q_smem ? (size_t)n : (size_t)P * n;
+  float2* qrows = Q + (size_t)r * n;  // row r + P t at qrows + t P n
 
   for (int e = tid; e < ncl * n; e += kCThreads) {
     const int i = e / ncl, c = e % ncl;
@@ -213,14 +201,12 @@ hessenberg_cluster_kernel(const float2* __restrict__ A, float2* __restrict__ H,
   }
   for (int e = tid; e < ncl * n; e += kCThreads) {
     const int t = e / n, j = e % n;
-    qrows[t * qstride + j] = c_make(r + P * t == j ? 1.f : 0.f, 0.f);
+    qrows[(size_t)t * P * n + j] = c_make(r + P * t == j ? 1.f : 0.f, 0.f);
   }
   cluster_arrive();
-  SPLIT_START
 
   for (int k = 0; k < n - 2; ++k) {
     cluster_wait();
-    SPLIT(0)
     const int owner = k % P;
     float2* vs = vring + (size_t)(k % kQBatch) * n;
     // ---- v and beta from column k, on every rank ----
@@ -249,7 +235,6 @@ hessenberg_cluster_kernel(const float2* __restrict__ A, float2* __restrict__ H,
       }
     }
     __syncthreads();
-    SPLIT(1)
     const float beta = betas[k % kQBatch].x;
     // first own column right of k
     const int c1 = k + 1 - r <= 0 ? 0 : (k + 1 - r + P - 1) / P;
@@ -258,7 +243,6 @@ hessenberg_cluster_kernel(const float2* __restrict__ A, float2* __restrict__ H,
     for (int c = c1 + warp; c < ncl; c += kCWarps)
       column_reflect(Hs + (size_t)c * n, vs, beta, k, n, lane);
     __syncthreads();
-    SPLIT(2)
 
     // ---- partial sums of H v over own columns > k ----
     for (int i = tid; i < n; i += kCThreads) {
@@ -268,17 +252,14 @@ hessenberg_cluster_kernel(const float2* __restrict__ A, float2* __restrict__ H,
       part[i] = acc;
     }
     cluster_arrive();
-    SPLIT(3)
 
     // ---- Q -= (beta Q v) v^H on own rows, the last kQBatch steps' v in
     // turn, while the others arrive ----
     if (k % kQBatch == kQBatch - 1 || k == n - 3)
       for (int t = warp; t < ncl; t += kCWarps)
-        row_reflect(qrows + t * qstride, vring, betas, k - k % kQBatch, k, n,
-                    lane);
-    SPLIT(4)
+        row_reflect(qrows + (size_t)t * P * n, vring, betas,
+                    k - k % kQBatch, k, n, lane);
     cluster_wait();
-    SPLIT(5)
 
     // ---- the owner's column k: every rank has read it ----
     if (r == owner && warp == kCWarps - 1)
@@ -299,7 +280,6 @@ hessenberg_cluster_kernel(const float2* __restrict__ A, float2* __restrict__ H,
       }
     }
     cluster_arrive();
-    SPLIT(6)
   }
   cluster_wait();  // no rank reads another's shared memory after this
 
@@ -308,11 +288,6 @@ hessenberg_cluster_kernel(const float2* __restrict__ A, float2* __restrict__ H,
     H[(size_t)i * n + j] =
         i > j + 1 ? c_make(0.f, 0.f) : Hs[(size_t)c * n + i];
   }
-  if (q_smem)
-    for (int e = tid; e < ncl * n; e += kCThreads) {
-      const int t = e / n, j = e % n;
-      Q[(size_t)(r + P * t) * n + j] = qrows[t * qstride + j];
-    }
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -441,11 +416,8 @@ hessenberg_kernel(const float2* __restrict__ A, float2* __restrict__ H,
 // matrices; sets the kernel's shared-memory and cluster-size attributes.
 template <int P>
 cudaError_t cluster_config(int batch, int n, cudaStream_t stream,
-                           cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr,
-                           int* q_smem) {
-  *q_smem = cluster_smem(n, P, true) <= kSmemPerBlock;
-  const size_t smem = cluster_smem(n, P, *q_smem);
-  if (smem > kSmemPerBlock || n > 32 * kPerLane) return cudaErrorInvalidValue;
+                           cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr) {
+  const size_t smem = cluster_smem(n, P);
   cudaError_t err = cudaFuncSetAttribute(
       hessenberg_cluster_kernel<P>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -475,12 +447,10 @@ int launch_cluster(const void* A, void* H, void* Q, int batch, int n,
                    cudaStream_t stream) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  int q_smem = 0;
-  cudaError_t err = cluster_config<P>(batch, n, stream, &cfg, &attr, &q_smem);
+  cudaError_t err = cluster_config<P>(batch, n, stream, &cfg, &attr);
   if (err != cudaSuccess) return (int)err;
   err = cudaLaunchKernelEx(&cfg, hessenberg_cluster_kernel<P>,
-                           (const float2*)A, (float2*)H, (float2*)Q, n,
-                           q_smem);
+                           (const float2*)A, (float2*)H, (float2*)Q, n);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -489,34 +459,31 @@ template <int P>
 int cluster_info(int n, int* o) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  int q_smem = 0;
-  cudaError_t err = cluster_config<P>(1, n, 0, &cfg, &attr, &q_smem);
+  cudaError_t err = cluster_config<P>(1, n, 0, &cfg, &attr);
   if (err != cudaSuccess) return (int)err;
   int active = 0;
   err = cudaOccupancyMaxActiveClusters(&active, hessenberg_cluster_kernel<P>,
                                        &cfg);
   if (err != cudaSuccess) return (int)err;
-  o[0] = (int)cfg.dynamicSmemBytes;
-  o[1] = q_smem;
+  o[0] = P;
+  o[1] = (int)cfg.dynamicSmemBytes;
   o[2] = active;
   return 0;
 }
 
 }  // namespace
 
-// cluster = 0: the one-block kernel; cluster = 8 or 16: one cluster of
-// that many CTAs per matrix (cudaErrorInvalidValue where its columns do
-// not fit).
+// A cluster of cluster_size(n) CTAs per matrix, or one block per matrix
+// where that is 0.
 extern "C" int torcwa_hessenberg_c64(const void* A, void* H, void* Q,
-                                     int batch, int n, int cluster,
-                                     void* stream) {
+                                     int batch, int n, void* stream) {
   if (batch <= 0 || n <= 0) return 0;
-  if (cluster == 8)
-    return launch_cluster<8>(A, H, Q, batch, n, (cudaStream_t)stream);
-  if (cluster == kMaxCluster)
+  const int P = cluster_size(n);
+  if (P == kCluster)
+    return launch_cluster<kCluster>(A, H, Q, batch, n, (cudaStream_t)stream);
+  if (P == kMaxCluster)
     return launch_cluster<kMaxCluster>(A, H, Q, batch, n,
                                        (cudaStream_t)stream);
-  if (cluster != 0) return (int)cudaErrorInvalidValue;
   const size_t smem =
       (4 * (size_t)n + (size_t)max(kThreads, n)) * sizeof(float2);
   cudaError_t err = set_smem(hessenberg_kernel, smem);
@@ -526,22 +493,14 @@ extern "C" int torcwa_hessenberg_c64(const void* A, void* H, void* Q,
   return (int)cudaGetLastError();
 }
 
-// The cluster kernel of 8 or 16 CTAs at n: out[0] = dynamic shared memory
-// of a CTA in bytes, out[1] = 1 where Q's rows sit in shared memory,
-// out[2] = how many clusters the card runs at once
-// (cudaOccupancyMaxActiveClusters).
-extern "C" int torcwa_hessenberg_cluster_info(int n, int cluster, void* out) {
-  if (cluster == 8) return cluster_info<8>(n, (int*)out);
-  if (cluster == kMaxCluster) return cluster_info<kMaxCluster>(n, (int*)out);
-  return (int)cudaErrorInvalidValue;
+// The kernel torcwa_hessenberg_c64 launches at n: out[0] = the cluster
+// size (0: one block per matrix, and nothing else is written), out[1] =
+// dynamic shared memory of a CTA in bytes, out[2] = how many clusters the
+// card runs at once (cudaOccupancyMaxActiveClusters).
+extern "C" int torcwa_hessenberg_cluster_info(int n, void* out) {
+  int* o = (int*)out;
+  o[0] = cluster_size(n);
+  if (o[0] == kCluster) return cluster_info<kCluster>(n, o);
+  if (o[0] == kMaxCluster) return cluster_info<kMaxCluster>(n, o);
+  return 0;
 }
-
-#ifdef HESS_SPLIT
-// out: 8 unsigned 64-bit counts, the parts SPLIT(0) .. SPLIT(6) record
-extern "C" int torcwa_hessenberg_split(void* out) {
-  unsigned long long zero[8] = {0};
-  cudaError_t err = cudaMemcpyFromSymbol(out, g_split, sizeof(zero));
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaMemcpyToSymbol(g_split, zero, sizeof(zero));
-}
-#endif

@@ -32,8 +32,8 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C entry points: name -> argtypes.  Each returns cudaGetLastError().
 _SIGNATURES = {
-    'torcwa_hessenberg_c64': [_P, _P, _P, _I, _I, _I, _P],
-    'torcwa_hessenberg_cluster_info': [_I, _I, _P],
+    'torcwa_hessenberg_c64': [_P, _P, _P, _I, _I, _P],
+    'torcwa_hessenberg_cluster_info': [_I, _P],
     'torcwa_schur_qr_c64': [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     'torcwa_schur_qr_v2_c64': [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     'torcwa_schur_qr_ms_c64': [_P, _P, _P, _I, _I, _I, _P],

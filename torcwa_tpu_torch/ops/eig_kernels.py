@@ -113,20 +113,22 @@ def _raise_on(name, err):
 # CTAs where a CTA's shared memory holds its columns of H: ceil(n / P)
 # columns of n entries, the reflectors v of the last four steps (Q's rows
 # take them four at a time) with their beta, and the partial sums of u, 8
-# bytes an entry, against the 227 KB a block may use.  P = CLUSTER (8, the
-# portable size) where that fits, n <= 461: an H100 runs 15 clusters of 8
-# at once but only 7 of 16, so a batch of 8 at P = 16 takes two waves
-# (B = 8, n = 338: 2.79-2.82 ms at P = 8, 5.37-5.48 at P = 16 on an NVIDIA
-# H100 80GB HBM3 at 700 W, qr_compare.py --stage hessenberg).  Else
-# P = CLUSTER_WIDE (16, the largest an H100 takes) up to CLUSTER_MAX_N
-# (640); larger n takes the one-block kernel (P = 0).
+# bytes an entry, against the 227 KB a block may use.  Its C entry point
+# picks P from n, and hessenberg_cluster mirrors the choice: P = CLUSTER
+# (8, the portable size) where that fits, n <= 461: an H100 runs 15
+# clusters of 8 at once but only 7 of 16, so a batch of 8 at P = 16 takes
+# two waves (B = 8, n = 338: 2.79-2.82 ms at P = 8, 5.37-5.48 at P = 16 on
+# an NVIDIA H100 80GB HBM3 at 700 W, qr_compare.py --stage hessenberg of
+# d655315, which could force P).
+# Else P = CLUSTER_WIDE (16, the largest an H100 takes) up to
+# CLUSTER_MAX_N (640); larger n takes the one-block kernel (P = 0).
 CLUSTER = 8
 CLUSTER_WIDE = 16
 SMEM_PER_BLOCK = 232448
 
 
 def cluster_smem_bytes(n, p):
-    """Shared memory of one CTA of the cluster kernel with H alone."""
+    """Shared memory of one CTA of the cluster kernel."""
     return 8 * (-(-n // p) * n + 5 * n + 4)
 
 
@@ -134,30 +136,27 @@ CLUSTER_MAX_N = max(n for n in range(1, 4096)
                     if cluster_smem_bytes(n, CLUSTER_WIDE) <= SMEM_PER_BLOCK)
 
 
-def hessenberg_cluster(n, cluster=None):
-    """The cluster size the wrapper launches at n: ``cluster`` where its
-    columns of H fit, else 0 (the one-block kernel); by default
-    :data:`CLUSTER` where it fits, else :data:`CLUSTER_WIDE` where that
-    fits, else 0."""
-    for p in ((CLUSTER, CLUSTER_WIDE) if cluster is None else (cluster,)):
-        if p and cluster_smem_bytes(n, p) <= SMEM_PER_BLOCK:
+def hessenberg_cluster(n):
+    """The cluster size the kernel takes at n: :data:`CLUSTER` where its
+    columns of H fit, else :data:`CLUSTER_WIDE` where they fit, else 0
+    (the one-block kernel)."""
+    for p in (CLUSTER, CLUSTER_WIDE):
+        if cluster_smem_bytes(n, p) <= SMEM_PER_BLOCK:
             return p
     return 0
 
 
-def hessenberg_cluster_info(n, cluster=None):
-    """The cluster kernel at n on this card: dict(cluster, smem_bytes,
-    q_in_smem, active_clusters), active_clusters from
-    cudaOccupancyMaxActiveClusters; None where n takes the one-block
-    kernel."""
-    p = hessenberg_cluster(n, cluster)
-    if not p:
-        return None
+def hessenberg_cluster_info(n):
+    """The kernel :func:`hessenberg` launches at n on this card, as its C
+    entry point reports it: dict(cluster, smem_bytes, active_clusters),
+    active_clusters from cudaOccupancyMaxActiveClusters; None where n
+    takes the one-block kernel."""
     out = (ctypes.c_int * 3)()
     _raise_on('hessenberg_cluster_info',
-              _build.load().torcwa_hessenberg_cluster_info(n, p, out))
-    return dict(cluster=p, smem_bytes=out[0], q_in_smem=bool(out[1]),
-                active_clusters=out[2])
+              _build.load().torcwa_hessenberg_cluster_info(n, out))
+    if not out[0]:
+        return None
+    return dict(cluster=out[0], smem_bytes=out[1], active_clusters=out[2])
 
 
 def hessenberg_plain(A, cluster=None):
@@ -201,23 +200,18 @@ def hessenberg_plain(A, cluster=None):
     return H.masked_fill(below, 0), Q
 
 
-def hessenberg(A, cluster=None):
+def hessenberg(A):
     """Batched Hessenberg reduction: (B, n, n) complex -> (H, Q).
 
-    On the card, one cluster of :func:`hessenberg_cluster` (n, cluster)
-    CTAs per matrix, or the one-block kernel where that is 0; an explicit
-    ``cluster`` whose columns do not fit raises."""
+    On the card, one cluster of :func:`hessenberg_cluster` (n) CTAs per
+    matrix, or one block per matrix where that is 0."""
     if not _check('hessenberg', A):
         return hessenberg_plain(A)
     B, n = A.shape[0], A.shape[-1]
-    p = hessenberg_cluster(n, cluster)
-    if cluster and not p:
-        raise ValueError(f'hessenberg: a cluster of {cluster} cannot hold '
-                         f'n = {n} (at most {SMEM_PER_BLOCK} bytes a CTA)')
     H = torch.empty_like(A)
     Q = torch.empty_like(A)
     err = _build.load().torcwa_hessenberg_c64(
-        A.data_ptr(), H.data_ptr(), Q.data_ptr(), B, n, p, _stream())
+        A.data_ptr(), H.data_ptr(), Q.data_ptr(), B, n, _stream())
     _raise_on('hessenberg', err)
     LAUNCHES['hessenberg'] += 1
     return H, Q
@@ -230,15 +224,18 @@ def hessenberg(A, cluster=None):
 def _givens(x, y):
     """(c real, s complex) with [[c, s], [-conj(s), c]] [x; y] = [r; 0].
 
-    As csrc/common.cuh forms it: x and y first scaled by the power of two
-    that brings their largest part into [0.5, 1) where it is below 1.  That
-    is exact, so the rotation is the unscaled formula's bit for bit wherever
-    no square underflows; where |x|^2 + |y|^2 would fall below the normal
-    range, the unscaled squares keep a few bits and c^2 + |s|^2 misses 1."""
+    As csrc/common.cuh forms it: where |x|^2 + |y|^2 falls below 2^-120,
+    x and y are first scaled by the power of two that brings their largest
+    part into [0.5, 1).  That is exact and keeps the rotation unitary where
+    the unscaled squares would near or leave the normal range (there they
+    keep a few bits and c^2 + |s|^2 misses 1); elsewhere the rotation is
+    the unscaled formula's."""
     mx = torch.maximum(torch.maximum(x.real.abs(), x.imag.abs()),
                        torch.maximum(y.real.abs(), y.imag.abs()))
+    tiny = (x.real ** 2 + x.imag ** 2 + (y.real ** 2 + y.imag ** 2)
+            < 2. ** -120) & (mx > 0)
     one = torch.ones_like(mx)
-    e = torch.where((mx > 0) & (mx < 1), -torch.frexp(mx)[1], 0)
+    e = torch.where(tiny, -torch.frexp(mx)[1], 0)
     # 2^e in two factors: for mx below 2^-128 it overflows a float32
     f1, f2 = torch.ldexp(one, e // 2), torch.ldexp(one, e - e // 2)
     x, y = x * f1 * f2, y * f1 * f2
