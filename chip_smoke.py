@@ -17,7 +17,9 @@ Phases (each prints its results; any failure exits non-zero):
      on random complex64 matrices (B=2, n=48) and on the order-6 wave
      matrices A = P Q (B=8, n=338) built by the port's own pq_pair, with
      the kernel hessenberg takes there (cluster size, shared memory,
-     clusters at once); schur_qr's per-lane stats beside the per-rotation
+     clusters at once) and the one tri_vectors takes (a warp per column
+     with its register slots, or one block a matrix); schur_qr's per-lane
+     stats beside the per-rotation
      kernel's it replaced (QR_STATS_PER_ROTATION); after a budget of sweeps
      on a random batch,
      schur_qr element by element against the plain model of its windowed
@@ -46,11 +48,14 @@ Phases (each prints its results; any failure exits non-zero):
   8. torch.profiler over one order-6 sweep and one order-20 solve: device
      time by kernel, idle share
   9. the stand-alone stages against their plain versions: schur_qr_v2 at
-     (2, 48), schur_qr_ms at n = 64 and 200, schur_ms(aed=False) at n = 200
+     (2, 48), schur_qr_ms at n = 64 and 200 (with the kernel its entry
+     point takes: a cluster of P CTAs, or one block), schur_ms(aed=False)
+     at n = 200
      (and at n = 640 against complex128 LAPACK), the NaN / no-NaN contracts
  10. the composed eig (Hessenberg -> stage -> vectors -> refinement) at full
      width: schur_qr_v2 on the (8, 338, 338) order-6 batch, schur_qr_ms on
-     one wave matrix at n = 338, 450 and 578, then one order-(7, 7) solve,
+     one wave matrix at n = 338, 450 and 578 (with its kernel's cluster
+     size and Z's placement), then one order-(7, 7) solve,
      forward and raster gradient, with the small route's Schur stage swapped
      to schur_qr_ms, against the complex128 oracle
  11. times of the stand-alone stages beside schur_qr and the two routes;
@@ -116,6 +121,14 @@ N_MID, N_BIG, N_SLAB = 300, 640, 3362
 # schur_ms(aed=False) against its plain version (every sweep a Python chase)
 N_NOAED = 200
 SMALL = ('hessenberg', 'schur_qr', 'tri_vectors')
+# the names of each small-route stage's kernels in a profile: the
+# Hessenberg reduction's one-block or cluster kernel; the vectors' one-block
+# kernel, or the packing pre-pass and the warp-per-column kernel
+STAGE_KERNELS = {
+    'hessenberg': ('hessenberg_kernel', 'hessenberg_cluster_kernel'),
+    'schur_qr': ('schur_qr_kernel',),
+    'tri_vectors': ('tri_vectors_kernel', 'tri_pack_kernel',
+                    'tri_vectors_warp_kernel')}
 LARGE = ('schur_ms', 'tri_vectors_blocked')
 ALT = ('schur_qr_v2', 'schur_qr_ms')
 BATCHED_ALT = ('schur_qr_baed', 'schur_qr_packed')
@@ -279,6 +292,26 @@ def hessenberg_path(ek, n):
             f'{info["active_clusters"]} clusters at once')
 
 
+def tri_vectors_path(ek, n):
+    """Which kernel ek.tri_vectors launches at n."""
+    slots = ek.tri_vectors_slots(n)
+    if not slots:
+        return 'one block of 256 threads per matrix'
+    return f'a warp per column, {slots} register slots of row sums a lane'
+
+
+def schur_qr_ms_path(n, m):
+    """Which kernel schur_qr_ms launches at (n, m), as its C entry point
+    reports it."""
+    from torcwa_tpu_torch.ops.schur_qr_ms import schur_qr_ms_cluster_info
+    info = schur_qr_ms_cluster_info(n, m)
+    if not info['cluster']:
+        return 'one block of 1024 threads'
+    return (f'a cluster of P = {info["cluster"]} CTAs, Z^T in '
+            f'{"shared" if info["z_shared"] else "device"} memory, '
+            f'{info["smem_bytes"]} bytes of shared memory a CTA')
+
+
 def kernel_checks(torch, ek, A, label, record, elementwise):
     """Phase 3 on one batch of matrices; fills `record` with the errors.
 
@@ -370,6 +403,7 @@ def kernel_checks(torch, ek, A, label, record, elementwise):
           f'sweeps kernel {mk} within 30% of plain {mp}')
 
     Y = ek.tri_vectors(T)
+    print(f'  tri_vectors path: {tri_vectors_path(ek, n)}')
     Yp = tri_vectors_plain(T)
     V = Z @ Y
     V = V / torch.linalg.vector_norm(V, dim=-2, keepdim=True)
@@ -508,11 +542,10 @@ def profile_sweep(torch, tp, eps32):
     kern = [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in kern) / 1e3
-    # the Hessenberg reduction's kernels: hessenberg_kernel (one block a
-    # matrix) and hessenberg_cluster_kernel<P>
-    ours = [e for e in kern if any(k + '_kernel' in e.key
-                                   or k + '_cluster_kernel' in e.key
-                                   for k in SMALL)]
+    ours = [e for e in kern if any(p in e.key for ps in STAGE_KERNELS.values()
+                                   for p in ps)]
+    shown = {k for k, ps in STAGE_KERNELS.items()
+             if any(p in e.key for e in ours for p in ps)}
     eig_ms = sum(e.self_device_time_total for e in ours) / 1e3
     n_other = sum(e.count for e in kern) - sum(e.count for e in ours)
     print(f'  wall per sweep (no profiler, mean of 3) {wall_ms:.3f} ms; '
@@ -523,7 +556,7 @@ def profile_sweep(torch, tp, eps32):
                     reverse=True)[:12]:
         print(f'  {e.self_device_time_total / 1e3:10.3f} ms x{e.count:5d}  '
               f'{e.key[:100]}')
-    check(len(ours) == len(SMALL), 'the profile shows the three eig '
+    check(shown == set(SMALL), 'the profile shows the three eig '
           'kernels')
 
 
@@ -1061,7 +1094,8 @@ def alt_kernel_checks(torch, ek, dev, A_rand, out):
         d = set_dist(w, wp) / rho
         do = set_dist(w.to(c128), w_ref) / rho
         res, orth, tri = schur_quality(torch, A, T, Z)
-        print(f'-- schur_qr_ms n={n} m={m}: (hi, sweeps, rotations) kernel '
+        print(f'-- schur_qr_ms n={n} m={m} ({schur_qr_ms_path(n, m)}): (hi, '
+              f'sweeps, rotations) kernel '
               f'{st} plain {stp} in {secs:.1f} s; eigenvalue sets differ by '
               f'{d:.2e} of the spectral radius, from complex128 LAPACK by '
               f'{do:.2e}; residual {res:.2e}, unitarity {orth:.2e}')
@@ -1278,8 +1312,9 @@ def alt_path(torch, tp, ek, dev, A6, H6, Q6, eps32, out):
         T, Z, st = sq.schur_qr_ms(H[0], Q[0], m=MS_M, return_stats=True)
         st = [int(x) for x in st]
         res, orth, tri = schur_quality(torch, Ao[0], T, Z)
-        print(f'  (hi, sweeps, rotations) {st}; Schur residual {res:.2e}, '
-              f'unitarity {orth:.2e}')
+        print(f'  schur_qr_ms path: {schur_qr_ms_path(n, MS_M)}; (hi, sweeps, '
+              f'rotations) {st}; Schur residual {res:.2e}, unitarity '
+              f'{orth:.2e}')
         check(st[0] == 0 and tri and res <= 1e-5 and orth <= 1e-5,
               f'schur_qr_ms n={n}: converged, Schur residual and unitarity '
               '<= 1e-5')

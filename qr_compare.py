@@ -1,9 +1,12 @@
 """One kernel stage of one or more checkouts, on the same inputs, in one
 call on the card: the batched single-shift Schur QR (csrc/schur_qr.cu;
-the default), the batched Hessenberg reduction (csrc/hessenberg.cu) or
-the blocked triangular eigenvectors (csrc/tri_vectors_blocked.cu).
+the default), the batched Hessenberg reduction (csrc/hessenberg.cu), the
+batched triangular eigenvectors (csrc/tri_vectors.cu), the one-launch
+multishift QR (csrc/schur_qr_ms.cu) or the blocked triangular eigenvectors
+(csrc/tri_vectors_blocked.cu).
 
-    python3 qr_compare.py [--stage schur_qr|hessenberg|tri_vectors_blocked|
+    python3 qr_compare.py [--stage schur_qr|hessenberg|tri_vectors|
+                                   schur_qr_ms|tri_vectors_blocked|
                                    unitarity]
                           [--fmad=false] [DIR ...]
                           (default: this checkout)
@@ -31,6 +34,17 @@ card's name and power limit.
   (orders 4 and 5, 0 degrees), n = 338 (order 6, 0 degrees) and n = 450
   (order 7, 10 degrees), with the cluster size, shared memory and
   clusters the card runs at once where the checkout reports them.
+* tri_vectors: ek.tri_vectors on the Schur factors of the B = 8 wave
+  matrices at n = 338 (0 degrees), 450 and 578 (10 degrees), and of the
+  first of them alone (B = 1), T from ek.hessenberg and ek.schur_qr (the
+  same kernels in every checkout so far; the checksums of T show it),
+  with torch.linalg.eig(T) beside them and the register slots where the
+  checkout reports them.
+* schur_qr_ms: sq.schur_qr_ms (m = 16) on one wave matrix at 500 nm and
+  10 degrees at orders 6, 7 and 8 (n = 338, 450, 578; chip_smoke.py phase
+  10), H and Q from ek.hessenberg, with (hi, sweeps, rotations), the
+  kernel the checkout launches (cluster size and Z's placement where it
+  reports them) and one torch.linalg.eig complex64 call on the same A.
 * tri_vectors_blocked: the in-block kernel over all row blocks of the
   order-20 Schur factor (phase 6's T, 2N = 3362, S precomputed, as
   chip_smoke.py phase 7), the whole tri_vectors_blocked with its GEMMs
@@ -184,6 +198,69 @@ def one_tri_vectors_blocked(label):
     print(json.dumps(out), flush=True)
 
 
+def one_tri_vectors(label):
+    """--stage tri_vectors in the checkout that is the working directory."""
+    sys.path.insert(0, os.getcwd())
+    import torch
+    import chip_smoke as cs
+    import torcwa_tpu_torch as tp
+    from torcwa_tpu_torch.ops import eig_kernels as ek
+    dev = torch.device('cuda', 0)
+    out = dict(dir=label, card=cs.smi_line(), stage='tri_vectors', ms={},
+               library_ms={}, T_checksum={}, Y_err={}, slots={})
+    for inc_name, order, inc_deg in CASES:
+        _, A = cs.wave_matrices(torch, tp, (order, order), cs.LAMS,
+                                math.radians(inc_deg), torch.float32, dev)
+        H, Q = ek.hessenberg(A.contiguous())
+        T = ek.schur_qr(H, Q)[0].contiguous()
+        n = T.shape[-1]
+        if hasattr(ek, 'tri_vectors_slots'):
+            out['slots'][f'n={n}'] = ek.tri_vectors_slots(n)
+        for B in ((8, 1) if n == 338 else (8,)):
+            Tb = T[:B].contiguous()
+            key = f'B={B} n={n} {inc_name}'
+            out['T_checksum'][key] = float(Tb.abs().double().sum())
+            Y, Yp = ek.tri_vectors(Tb), ek.tri_vectors_plain(Tb)
+            out['Y_err'][key] = float(((Y - Yp).abs().amax((-2, -1))
+                                       / Yp.abs().amax((-2, -1))).max())
+            out['ms'][key] = cs.cuda_ms(torch, lambda: ek.tri_vectors(Tb),
+                                        reps=3)
+            out['library_ms'][key] = cs.cuda_ms(
+                torch, lambda: torch.linalg.eig(Tb), reps=1)
+    print(json.dumps(out), flush=True)
+
+
+def one_schur_qr_ms(label):
+    """--stage schur_qr_ms in the checkout that is the working directory."""
+    sys.path.insert(0, os.getcwd())
+    import torch
+    import chip_smoke as cs
+    import torcwa_tpu_torch as tp
+    from torcwa_tpu_torch.ops import eig_kernels as ek, schur_qr_ms as sq
+    dev = torch.device('cuda', 0)
+    inc = math.radians(cs.WELL_POSED_DEG)
+    out = dict(dir=label, card=cs.smi_line(), stage='schur_qr_ms', m=cs.MS_M,
+               ms={}, stats={}, library_ms={}, kernel={}, unitarity={})
+    for order in (6, 7, 8):
+        _, A = cs.wave_matrices(torch, tp, (order, order), cs.LAM_L, inc,
+                                torch.float32, dev)
+        A = A.contiguous()
+        n = A.shape[-1]
+        H, Q = ek.hessenberg(A)
+        H, Q = H[0], Q[0]
+        key = f'n={n}'
+        T, Z, st = sq.schur_qr_ms(H, Q, m=cs.MS_M, return_stats=True)
+        out['stats'][key] = [int(x) for x in st]
+        out['unitarity'][key] = cs.schur_quality(torch, A[0], T, Z)[1]
+        if hasattr(sq, 'schur_qr_ms_cluster_info'):
+            out['kernel'][key] = sq.schur_qr_ms_cluster_info(n, cs.MS_M)
+        out['ms'][key] = cs.cuda_ms(
+            torch, lambda: sq.schur_qr_ms(H, Q, m=cs.MS_M), reps=3)
+        out['library_ms'][key] = cs.cuda_ms(
+            torch, lambda: torch.linalg.eig(A[0]), reps=3)
+    print(json.dumps(out), flush=True)
+
+
 def one_unitarity(label):
     """--stage unitarity in the checkout that is the working directory."""
     sys.path.insert(0, os.getcwd())
@@ -264,13 +341,18 @@ def main(args):
     return 0
 
 
-STAGES = ('schur_qr', 'hessenberg', 'tri_vectors_blocked', 'unitarity')
+STAGES = ('schur_qr', 'hessenberg', 'tri_vectors', 'schur_qr_ms',
+          'tri_vectors_blocked', 'unitarity')
 
 if __name__ == '__main__':
     if sys.argv[1:2] == ['--one']:
         label, stage = sys.argv[2], sys.argv[3]
         if stage == 'hessenberg':
             one_hessenberg(label)
+        elif stage == 'tri_vectors':
+            one_tri_vectors(label)
+        elif stage == 'schur_qr_ms':
+            one_schur_qr_ms(label)
         elif stage == 'tri_vectors_blocked':
             one_tri_vectors_blocked(label)
         elif stage == 'unitarity':

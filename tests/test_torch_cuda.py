@@ -645,3 +645,133 @@ def test_schur_qr_baed_aed_rotations_keep_z_unitary(dev):
     for b in range(A.shape[0]):
         res, orth, tri = cs.schur_quality(torch, A[b], T[b], Z[b])
         assert tri and res <= 1e-5 and orth <= 1e-5
+
+
+# ---------------------------------------------------------------------------
+# schur_qr_ms on a thread-block cluster, tri_vectors a warp per column
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize('n', [64, 200, 338, 450, 578])
+def test_schur_qr_ms_cluster_kernel_matches_plain(dev, n):
+    # random matrices at m = 16: P = 8 at n = 64 and 200, 16 above; Z^T in
+    # shared memory to n = 450, in device memory at 578.  Round-off soon
+    # decides which subdiagonal deflates first, so kernel and plain are
+    # held as chip_smoke.py phase 9 holds them: eigenvalue sets within
+    # 1e-4 of the spectral radius, both converged, T triangular, sweeps
+    # within 2x and rotations within 20%; residual and unitarity within
+    # 1e-5, or where the plain float32 version's own exceed half that (its
+    # rotations' round-off in Z grows with their number), within twice its
+    from torcwa_tpu_torch.ops import schur_qr_ms as sq
+    m = 16
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke as cs
+    P, zs = sq.schur_qr_ms_cluster(n, m)
+    assert P == (8 if n <= 256 else 16) and zs == (n <= 450)
+    A = _rand1(dev, n, 60 + n)
+    H, Q = ek.hessenberg_plain(A[None])
+    T, Z, st = _launch('schur_qr_ms', sq.schur_qr_ms, H[0], Q[0], m=m,
+                       return_stats=True)
+    Tp, Zp, stp = sq.schur_qr_ms_plain(H[0], Q[0], m=m, return_stats=True)
+    st, stp = [int(x) for x in st], [int(x) for x in stp]
+    assert st[0] == 0 and stp[0] == 0
+    assert _sets_agree(torch.diagonal(T), torch.diagonal(Tp))
+    res, orth, tri = cs.schur_quality(torch, A, T, Z)
+    res_p, orth_p, _ = cs.schur_quality(torch, A, Tp, Zp)
+    assert tri and res <= max(1e-5, 2 * res_p) \
+        and orth <= max(1e-5, 2 * orth_p), (res, res_p, orth, orth_p)
+    assert stp[1] / 2 <= st[1] <= 2 * stp[1]
+    assert abs(st[2] - stp[2]) <= 0.2 * stp[2]
+
+
+def test_schur_qr_ms_one_block_kernel_above_the_cluster(dev):
+    # n = 700: H's columns do not fit the cluster's shared memory, so the
+    # entry point launches the one-block kernel (its plain version takes
+    # minutes here): eigenvalues against complex128 LAPACK within 1e-4 of
+    # the spectral radius, residual and unitarity 2e-5, as chip_smoke.py
+    # phase 9 holds schur_ms(aed=False) at n = 640 (float32 round-off in Z
+    # grows with the sweeps of a QR without AED)
+    from torcwa_tpu_torch.ops import schur_qr_ms as sq
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke as cs
+    n, m = 700, 16
+    assert sq.schur_qr_ms_cluster(n, m) == (0, False)
+    assert sq.schur_qr_ms_cluster_info(n, m)['cluster'] == 0
+    A = _rand1(dev, n, 7)
+    H, Q = ek.hessenberg(A[None].contiguous())
+    T, Z, st = _launch('schur_qr_ms', sq.schur_qr_ms, H[0], Q[0], m=m,
+                       return_stats=True)
+    assert int(st[0]) == 0
+    w_ref = torch.linalg.eigvals(A.to(torch.complex128))
+    d = cs.set_dist(torch.diagonal(T).to(torch.complex128), w_ref)
+    assert d <= 1e-4 * float(w_ref.abs().max())
+    res, orth, tri = cs.schur_quality(torch, A, T, Z)
+    assert tri and res <= 2e-5 and orth <= 2e-5, (res, orth)
+
+
+def test_kernel_choices_by_n_on_the_card(dev):
+    # what the C entry points launch, read back through them, against the
+    # Python mirrors: schur_qr_ms's cluster size (from n alone) and Z's
+    # placement, tri_vectors's register slots
+    from torcwa_tpu_torch.ops import _build, schur_qr_ms as sq
+    for m in (4, 16, 64):
+        for n in (1, 2, 5, 64, 200, 256, 257, 338, 450, 470, 480, 578, 640,
+                  672, 700, 1000):
+            info = sq.schur_qr_ms_cluster_info(n, m)
+            P, zs = sq.schur_qr_ms_cluster(n, m)
+            assert (info['cluster'], info['z_shared']) == (P, zs), (n, m)
+            if P:
+                assert info['smem_bytes'] == sq.cluster_smem_bytes(n, P, m,
+                                                                   zs)
+    lib = _build.load()
+    for n in (1, 32, 33, 128, 129, 338, 450, 578, 640, 641, 882):
+        assert lib.torcwa_tri_vectors_slots(n) == ek.tri_vectors_slots(n)
+
+
+def _schur_batch(dev, B, n, seed):
+    import scipy.linalg as sl
+    rng = np.random.default_rng(seed)
+    T = [sl.schur(rng.standard_normal((n, n))
+                  + 1j * rng.standard_normal((n, n)), output='complex')[0]
+         for _ in range(B)]
+    return torch.as_tensor(np.ascontiguousarray(np.stack(T), np.complex64),
+                           device=dev)
+
+
+def _vec_err(Y, Yp):
+    """max|Y - Yp| / max|Yp| per lane, the worst lane."""
+    return float(((Y - Yp).abs().amax((-2, -1))
+                  / Yp.abs().amax((-2, -1))).max())
+
+
+@pytest.mark.parametrize('B', [1, 8])
+@pytest.mark.parametrize('n', [64, 200, 338, 450, 578, 700])
+def test_tri_vectors_kernels_match_plain(dev, n, B):
+    # Schur factors of random matrices: the warp per column (n <= 640) sums
+    # each row in descending l, the plain version in its einsum's order;
+    # float32, the two within 1e-5 of max|Y| per lane (the two orders of
+    # the plain version sat 5e-7 - 6e-7 apart at n = 338 and 578 in a CPU
+    # run); n = 700 takes the one-block kernel
+    T = _schur_batch(dev, B, n, 70 + n + B)
+    Y = _launch('tri_vectors', ek.tri_vectors, T)
+    Yp = ek.tri_vectors_plain(T)
+    assert _vec_err(Y, Yp) <= 1e-5
+    assert bool((torch.tril(Y, -1) == 0).all())
+    assert bool((torch.diagonal(Y, dim1=-2, dim2=-1) == 1).all())
+
+
+def test_tri_vectors_warp_kernel_floors_the_pivots(dev):
+    # an exactly repeated eigenvalue (the pivot 0 becomes dmin) and a
+    # near-repeated one (1e-6 apart, under dmin ~ 4e-6: scaled to dmin) in
+    # each lane, n = 200: those columns grow by ~1/dmin; every column
+    # within 1e-5 of its own largest entry of the plain version's
+    T = _schur_batch(dev, 2, 200, 5)
+    for b in range(2):
+        T[b, 40, 40] = T[b, 7, 7]
+        T[b, 91, 91] = T[b, 90, 90] + 1e-6
+    Y = _launch('tri_vectors', ek.tri_vectors, T)
+    Yp = ek.tri_vectors_plain(T)
+    err = ((Y - Yp).abs().amax(-2) / Yp.abs().amax(-2)).max()
+    assert float(err) <= 1e-5
+    assert float(Yp[:, :, 40].abs().max()) > 1e4

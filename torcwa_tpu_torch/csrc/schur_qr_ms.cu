@@ -25,35 +25,52 @@
 // the per-bulge scalar extraction by masked sums.  Rotations are applied to
 // H and Z directly, so no matrix product is left in the stage.
 //
-// Design: one thread block of 1024 threads for the matrix and the sweep loop
-// on the device: no host round trip per sweep, which is this kernel's point
-// beside schur_ms.  H and Z stay in device memory (0.9 MB each at n = 338,
-// resident in the L2 cache up to n ~ 1500); the m x m shift block, the
-// shifts and the bulge carries live in shared memory.  The band scan is two
-// block-wide max-reductions; warp 0 computes the shifts while the others
-// wait; the chase is chase_whole_block of ms_chase.cuh, which schur_qr_baed.cu
-// runs too; a chase step is three phases behind block barriers: (1) threads
-// 0..m-1 form the step's rotations from the carries, (2) every row rotation,
-// (3) every column rotation of H.  A step's m rotations touch disjoint row
-// pairs and disjoint column pairs, and a row rotation covers columns
-// >= max(k - 1, lo) only, so that the bump a trailing bulge creates is never
-// smeared by the bulge ahead of it: then all rows before all columns equals
-// the bulges taken one after another, leading bulge first.
-// Z is held TRANSPOSED in this kernel (the wrapper hands Q^T in and takes
-// Z^T out): Z <- Z G^H on columns k, k+1 becomes a rotation of two rows of
-// Z^T, contiguous in memory, and joins phase (2).  With plain Z the column
-// pairs would be read at stride n, one 32-byte sector for every 16 bytes
-// used, which doubles the strided traffic of a step; H's own column pairs
-// (rows <= k + 2 only) remain strided.
+// Two kernels, chosen by n and m in the C entry point (cluster_choice
+// below; ops/schur_qr_ms.py: schur_qr_ms_cluster mirrors it):
 //
-// What bounds it on an H100: latency and one SM's path to the L2 cache.  The
-// ~n^2 (3..4) / 2 rotations come m at a time, each step ~m (3 n x 16 B of
-// rows + (k + 3) x 32 B of column sectors) behind three barriers, and only
-// one of 132 SMs works.  The design does nothing against that beyond the
-// transposed Z and the banded row range; a cluster of blocks per matrix, or
-// aggressive early deflation in the launch, is later work.
+// * ms_cluster::kernel<P, kZs> (ms_cluster.cuh): one thread-block cluster
+//   of P CTAs for the matrix, H in the cluster's distributed shared memory
+//   (column j on rank j mod P), Z^T beside it where both fit (kZs), else
+//   in device memory with a slice of its columns per rank; two cluster
+//   barriers a chase step.  P is picked from n alone: 8 where a rank holds
+//   at most 32 columns (n <= 256), else 16, the non-portable size.
+// * schur_qr_ms_kernel, where H's columns do not fit the cluster's shared
+//   memory (n above ~670 at m = 16): one thread block of 1024 threads.
+//   H and Z stay in device memory (0.9 MB each at n = 338, resident in the
+//   L2 cache up to n ~ 1500); the m x m shift block, the shifts and the
+//   bulge carries live in shared memory.  The band scan is two block-wide
+//   max-reductions; warp 0 computes the shifts while the others wait; the
+//   chase is chase_whole_block of ms_chase.cuh, which schur_qr_baed.cu runs
+//   too; a chase step is three phases behind block barriers: (1) threads
+//   0..m-1 form the step's rotations from the carries, (2) every row
+//   rotation, (3) every column rotation of H.
+// Either way a step's m rotations touch disjoint row pairs and disjoint
+// column pairs, and a row rotation covers columns >= max(k - 1, lo) only,
+// so that the bump a trailing bulge creates is never smeared by the bulge
+// ahead of it: then all rows before all columns equals the bulges taken one
+// after another, leading bulge first.
+// Z is held TRANSPOSED (the wrapper hands Q^T in and takes Z^T out):
+// Z <- Z G^H on columns k, k+1 becomes a rotation of two rows of Z^T,
+// contiguous in memory, and joins the row phase.  With plain Z the column
+// pairs would be read at stride n, one 32-byte sector for every 16 bytes
+// used.
+//
+// What bounds it on an H100: latency, in two serial chains.  On the
+// order-6 wave matrix (n = 338, m = 16: 339 sweeps, 124465 rotations) the
+// active block is ~23 rows on average, so a sweep is ~23 steps plus
+// 2 (nb - 1) of pipeline fill and drain, ~18k steps in all.  A step of the
+// cluster kernel took ~3.2k cycles (a clock64() split of thread 0 of rank
+// 0 in a scratch build: forming the rotations ~650, the row phase ~310,
+// the first cluster barrier ~620, the column phase ~510, Z^T's rows ~800
+// and the second barrier ~280), and the shifts, one warp's serial QR of
+// the 16 x 16 block, ~28 us a sweep, a quarter of the launch: 38 ms
+// against the one-block kernel's 91 (PERF.md).  The one-block kernel
+// streamed each step's m (3 n x 16 B of rows + (k + 3) x 32 B of column
+// sectors) through one SM's path to the L2 cache behind three block
+// barriers.
 
 #include "ms_chase.cuh"
+#include "ms_cluster.cuh"
 
 namespace {
 
@@ -113,6 +130,59 @@ schur_qr_ms_kernel(float2* __restrict__ H, float2* __restrict__ Zt,
   }
 }
 
+// The kernel the entry point launches at (n, m): the cluster size P (0:
+// the one-block kernel) and whether Z^T sits in shared memory.
+struct ClusterChoice {
+  int P;
+  bool zs;
+};
+
+ClusterChoice cluster_choice(int n, int m) {
+  const int P = ms_cluster::cluster_of(n);
+  const size_t room =
+      ms_cluster::kSmemPerBlock - ms_cluster::kStaticReserve;
+  if (ms_cluster::smem_bytes(n, P, m, true) <= room) return {P, true};
+  if (ms_cluster::smem_bytes(n, P, m, false) <= room) return {P, false};
+  return {0, false};
+}
+
+template <int P, bool kZs>
+int launch_cluster(void* H, void* Zt, void* stats, int n, int m,
+                   int max_sweeps, cudaStream_t stream) {
+  auto kern = ms_cluster::kernel<P, kZs>;
+  cudaFuncAttributes fa;
+  cudaError_t err = cudaFuncGetAttributes(&fa, kern);
+  if (err != cudaSuccess) return (int)err;
+  if (fa.sharedSizeBytes > ms_cluster::kStaticReserve)
+    return (int)cudaErrorInvalidConfiguration;
+  const size_t smem = ms_cluster::smem_bytes(n, P, m, kZs);
+  err = cudaFuncSetAttribute(kern,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  if (P > 8) {
+    err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return (int)err;
+  }
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = P;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(P);
+  cfg.blockDim = dim3(ms_cluster::kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kern, (float2*)H, (float2*)Zt,
+                           (long long*)stats, n, m, max_sweeps);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // H (in place: T on return) and Zt (Q^T in, Z^T out) are n x n complex64,
@@ -120,10 +190,35 @@ schur_qr_ms_kernel(float2* __restrict__ H, float2* __restrict__ Zt,
 extern "C" int torcwa_schur_qr_ms_c64(void* H, void* Zt, void* stats, int n,
                                       int m, int max_sweeps, void* stream) {
   if (n < 1 || m < 1 || m > kShiftMaxM) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const ClusterChoice ch = n >= 2 ? cluster_choice(n, m) : ClusterChoice{0};
+  using ms_cluster::kSmall;
+  using ms_cluster::kWide;
+  if (ch.P == kSmall && ch.zs)
+    return launch_cluster<kSmall, true>(H, Zt, stats, n, m, max_sweeps, s);
+  if (ch.P == kSmall)
+    return launch_cluster<kSmall, false>(H, Zt, stats, n, m, max_sweeps, s);
+  if (ch.P == kWide && ch.zs)
+    return launch_cluster<kWide, true>(H, Zt, stats, n, m, max_sweeps, s);
+  if (ch.P == kWide)
+    return launch_cluster<kWide, false>(H, Zt, stats, n, m, max_sweeps, s);
   const size_t smem = shift_block_elems(m) * sizeof(float2);
   cudaError_t err = set_smem(schur_qr_ms_kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  schur_qr_ms_kernel<<<1, kThreads, smem, (cudaStream_t)stream>>>(
+  schur_qr_ms_kernel<<<1, kThreads, smem, s>>>(
       (float2*)H, (float2*)Zt, (long long*)stats, n, m, max_sweeps);
   return (int)cudaGetLastError();
+}
+
+// The kernel torcwa_schur_qr_ms_c64 launches at (n, m): out[0] = the
+// cluster size (0: the one-block kernel), out[1] = 1 where Z^T sits in
+// shared memory, out[2] = the dynamic shared memory of a CTA in bytes.
+extern "C" int torcwa_schur_qr_ms_cluster_info(int n, int m, void* out) {
+  int* o = (int*)out;
+  if (n < 1 || m < 1 || m > kShiftMaxM) return (int)cudaErrorInvalidValue;
+  const ClusterChoice ch = n >= 2 ? cluster_choice(n, m) : ClusterChoice{0};
+  o[0] = ch.P;
+  o[1] = ch.zs ? 1 : 0;
+  o[2] = ch.P ? (int)ms_cluster::smem_bytes(n, ch.P, m, ch.zs) : 0;
+  return 0;
 }

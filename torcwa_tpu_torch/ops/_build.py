@@ -37,9 +37,11 @@ _SIGNATURES = {
     'torcwa_schur_qr_c64': [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     'torcwa_schur_qr_v2_c64': [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     'torcwa_schur_qr_ms_c64': [_P, _P, _P, _I, _I, _I, _P],
+    'torcwa_schur_qr_ms_cluster_info': [_I, _I, _P],
     'torcwa_schur_qr_baed_c64': [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     'torcwa_schur_qr_packed_f32': [_P, _P, _P, _I, _I, _I, _I, _P],
-    'torcwa_tri_vectors_c64': [_P, _P, _I, _I, _P],
+    'torcwa_tri_vectors_c64': [_P, _P, _P, _P, _I, _I, _P],
+    'torcwa_tri_vectors_slots': [_I],
     'torcwa_tri_vectors_block_c64': [_P, _P, _P, _P, _I, _I, _I, _P],
     'torcwa_ms_band_scan_c64': [_P, _I, _I, _F, _P, _P],
     'torcwa_ms_aed_c64': [_P, _I, _P, _I, _I, _I, _F, _P, _P, _P],

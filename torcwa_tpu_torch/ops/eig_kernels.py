@@ -30,7 +30,7 @@ import torch
 from . import _build
 
 __all__ = ['hessenberg', 'hessenberg_cluster', 'hessenberg_cluster_info',
-           'schur_qr', 'schur_qr_v2', 'tri_vectors',
+           'schur_qr', 'schur_qr_v2', 'tri_vectors', 'tri_vectors_slots',
            'hessenberg_plain', 'schur_qr_plain', 'schur_qr_v2_plain',
            'tri_vectors_plain', 'LAUNCHES', 'reset_launch_counts']
 
@@ -567,10 +567,32 @@ def schur_qr_v2(H, Q, max_iter_factor=MAX_ITER_FACTOR, return_stats=False,
 # Triangular eigenvectors
 # ---------------------------------------------------------------------------
 
-def tri_vectors_plain(T):
+# csrc/tri_vectors.cu runs a warp per column where a lane's register
+# slots hold the row sums, n <= 32 VEC_MAX_SLOTS, slots compiled in steps of
+# VEC_SLOT_STEP; larger n takes the one-block kernel (0 slots)
+VEC_MAX_SLOTS = 20
+VEC_SLOT_STEP = 4
+
+
+def tri_vectors_slots(n):
+    """Register slots of row sums a lane of the warp-per-column kernel
+    keeps at n; 0 where n takes the one-block kernel."""
+    need = -(-n // 32)
+    if need > VEC_MAX_SLOTS:
+        return 0
+    return -(-need // VEC_SLOT_STEP) * VEC_SLOT_STEP
+
+
+def tri_vectors_plain(T, by_columns=False):
     """Unit upper-triangular Y with T Y = Y diag(lambda), by row
     back-substitution with LAPACK-style floored pivots
-    (eig_qr_pallas._kernel_vec)."""
+    (eig_qr_pallas._kernel_vec).
+
+    With ``by_columns`` in the order of the warp-per-column kernel
+    (csrc/tri_vectors.cu): each y_i, once formed, added into the sums of
+    the rows above it, Y's unit entry first, so every sum is taken in
+    descending l (the kernel multiplies by conj(D) / |D|^2 where this
+    divides by |D|^2)."""
     B, n = T.shape[0], T.shape[-1]
     eps, smlnum = _consts(T.dtype)
     lam = torch.diagonal(T, dim1=-2, dim2=-1)
@@ -578,9 +600,16 @@ def tri_vectors_plain(T):
     dmin = torch.clamp(eps * torch.maximum(lam.abs(), tnorm), min=smlnum)
     Y = torch.eye(n, dtype=T.dtype, device=T.device).expand(B, n, n).clone()
     idx = torch.arange(n, device=T.device)
-    for j in range(n - 2, -1, -1):
-        trow = torch.where(idx > j, T[:, j, :], torch.zeros_like(T[:, j, :]))
-        s = torch.einsum('bl,blm->bm', trow, Y)
+    # by columns the unit entry Y[m, m] brings T[j, m] into the sums at
+    # step j = m, the first term of each
+    sums = torch.zeros_like(T) if by_columns else None
+    for j in range(n - 1 if by_columns else n - 2, -1, -1):
+        if by_columns:
+            s = sums[:, j, :]
+        else:
+            trow = torch.where(idx > j, T[:, j, :],
+                               torch.zeros_like(T[:, j, :]))
+            s = torch.einsum('bl,blm->bm', trow, Y)
         drow = lam[:, j:j + 1] - lam
         dabs = drow.abs()
         small = dabs < dmin
@@ -591,17 +620,28 @@ def tri_vectors_plain(T):
         dden = torch.where(dden > 0, dden, 1.)
         q = -(s * drow.conj()) / dden
         Y[:, j, :] = torch.where(idx > j, q, Y[:, j, :])
+        if by_columns:
+            sums[:, :j, :] += T[:, :j, j, None] * Y[:, j, None, :]
     return Y
 
 
 def tri_vectors(T):
-    """Batched triangular eigenvectors: (B, n, n) Schur factor -> Y."""
+    """Batched triangular eigenvectors: (B, n, n) Schur factor -> Y.
+
+    On the card a warp per column (:func:`tri_vectors_slots` (n) > 0) after
+    a pre-pass that packs T's triangle into scratch, else one block per
+    matrix."""
     if not _check('tri_vectors', T):
         return tri_vectors_plain(T)
     B, n = T.shape[0], T.shape[-1]
     Y = torch.empty_like(T)
+    # scratch of the pre-pass: T's triangle packed by columns, and the
+    # largest column sum of |T| in each tile of 32 columns
+    tri = torch.empty(B, n * (n + 1) // 2, dtype=T.dtype, device=T.device)
+    tmax = torch.empty(B, -(-n // 32), dtype=torch.float32, device=T.device)
     err = _build.load().torcwa_tri_vectors_c64(
-        T.data_ptr(), Y.data_ptr(), B, n, _stream())
+        T.data_ptr(), Y.data_ptr(), tri.data_ptr(), tmax.data_ptr(), B, n,
+        _stream())
     _raise_on('tri_vectors', err)
     LAUNCHES['tri_vectors'] += 1
     return Y
