@@ -4,14 +4,16 @@ Example-1 sweep (order 6, 8 wavelengths, grid 256, float32) through the
 batched small-n kernels, one order-(20, 20) solve (2N = 3362) through the
 large-n route, the composed eig through the two stand-alone Schur
 stages (schur_qr_v2 on the order-6 batch, schur_qr_ms on one matrix at
-orders 6 to 8 and inside one order-(7, 7) solve), and the order-6 and order-7
+orders 6 to 8 and inside one order-(7, 7) solve), the order-6 and order-7
 8-wavelength sweeps through the two batched stages that are on no route
-(schur_qr_baed, schur_qr_packed).
+(schur_qr_baed, schur_qr_packed), and a three-layer stack through the
+class API (rcwa, with the a-Si:H table of materials).
 
     python3 chip_smoke.py
 
 Phases (each prints its results; any failure exits non-zero):
-  1. environment: versions, card, power limit, nvcc; IEEE f32 pinned
+  1. environment: versions, card, power limit, nvcc; the script runs in
+     an IEEE f32 scope (_constants.f32_pinned)
   2. build: nvcc the kernels in torcwa_tpu_torch/csrc
   3. each small-route kernel against its plain PyTorch version on the card,
      on random complex64 matrices (B=2, n=48) and on the order-6 wave
@@ -50,7 +52,7 @@ Phases (each prints its results; any failure exits non-zero):
   9. the stand-alone stages against their plain versions: schur_qr_v2 at
      (2, 48), schur_qr_ms at n = 64 and 200 (with the kernel its entry
      point takes: a cluster of P CTAs, or one block), schur_ms(aed=False)
-     at n = 200
+     at n = 160
      (and at n = 640 against complex128 LAPACK), the NaN / no-NaN contracts
  10. the composed eig (Hessenberg -> stage -> vectors -> refinement) at full
      width: schur_qr_v2 on the (8, 338, 338) order-6 batch, schur_qr_ms on
@@ -61,7 +63,7 @@ Phases (each prints its results; any failure exits non-zero):
  11. times of the stand-alone stages beside schur_qr and the two routes;
      schur_qr and schur_qr_v2 beside the kernel they replaced
  12. schur_qr_baed and schur_qr_packed against their plain versions on
-     random complex64 batches at (2, 96) and (8, 128), lanes of different
+     random complex64 batches at (2, 96) and (8, 112), lanes of different
      kinds in one schur_qr_baed launch, the NaN contracts, what they refuse
  13. the path at full width: the composed eig through each of the two on the
      (8, 338, 338) order-6 and (8, 450, 450) order-7 wave matrices, then the
@@ -75,6 +77,15 @@ Phases (each prints its results; any failure exits non-zero):
      element on a random batch; the composed eig and the order-6 sweep
      through each, and the B = 8 batch through the large route at n = 450
      and 578
+ 15. the class API: a-Si:H rectangle (300 nm), SU-8 spacer (200 nm,
+     homogeneous), SiN circle (150 nm) between the substrate and air, order
+     (6, 6), 532 nm, 10 degrees, complex64 through the eig kernels, forward
+     and raster gradient, against the same class at complex128 through
+     torch.linalg.eig (|S|^2, field_xz, gradient cosine); one layer at
+     order (10, 10) against solve_stack_pair; launch counts, the kernels by
+     name in a profile and no library eig, times, device time and idle
+     share; with TF32 switched on outside, every product, solve and inverse
+     of the forward and backward in IEEE f32 and the setting restored
 The line before the last is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}.  Needs no JAX and no network.
 """
@@ -118,8 +129,9 @@ SOURCES = {k: f'torcwa_tpu_torch/csrc/{k}.cu' for k in REPLACES}
 SOURCES['schur_qr_v2'] = SOURCES['schur_qr']
 # sizes of the large-route kernel checks on random matrices
 N_MID, N_BIG, N_SLAB = 300, 640, 3362
-# schur_ms(aed=False) against its plain version (every sweep a Python chase)
-N_NOAED = 200
+# schur_ms(aed=False) against its plain version (every sweep a Python
+# chase): two overlapping chase windows of 128 rows at this size
+N_NOAED = 160
 SMALL = ('hessenberg', 'schur_qr', 'tri_vectors')
 # the names of each small-route stage's kernels in a profile: the
 # Hessenberg reduction's one-block or cluster kernel; the vectors' one-block
@@ -191,6 +203,21 @@ QR_MS_PER_ROTATION = {'schur_qr': 164.11, 'schur_qr_v2': 178.80,
 # model of its windowed schedule (random batch, B x n), and its lanes
 QR_MODEL_BUDGET = 2
 QR_MODEL_LANES = 4
+
+# the class API's stack (phase 15): a 300 nm a-Si:H rectangle on the
+# substrate (the vendored table at 532 nm), a 200 nm SU-8 spacer
+# (homogeneous), a 150 nm SiN circle, air above; 10 degrees
+CLASS_ORDER = (6, 6)
+CLASS_LAM = 532.
+SU8_EPS = 1.6 ** 2
+CLASS_ORDERS = [[0, 0], [1, 0], [0, 1], [-1, 0], [1, 1], [2, 0]]
+# one layer through the class and the functional path on the large route
+CLASS_ORDER_L = (10, 10)
+# the ops whose float32 setting the pin check records: the products,
+# solves and inverses of the forward and of torch's backward formulas
+PINNED_OPS = {'mm', 'bmm', 'addmm', 'baddbmm', 'mv', 'addmv', 'dot',
+              'linalg_solve', 'linalg_solve_ex', 'linalg_inv',
+              'linalg_inv_ex', 'linalg_lu_solve', 'linalg_lu_factor_ex'}
 
 # NVIDIA H100 SXM data sheet: device memory rate and the IEEE float32 rate
 # outside the tensor cores (no TF32)
@@ -1503,7 +1530,7 @@ def batched_alt_checks(torch, ek, dev, out):
                 d = max(d, set_dist(w, torch.diagonal(Tp[b])) / rho)
         return d, do
 
-    for B, n in ((2, 96), (8, 128)):
+    for B, n in ((2, 96), (8, 112)):
         A = torch.stack([rand_c64(torch, n, 1000 * n + b, dev)
                          for b in range(B)])
         H, Q = ek.hessenberg(A)
@@ -1905,14 +1932,229 @@ def batched_alt_times(torch, tp, ek, smi, eps32, out, times, bounds):
         eq.LARGE_MIN_N = keep
 
 
+def class_stack(torch, tp, dev, occ, circ, si, dtype, backend):
+    """Phase 15's stack through the class API, solved."""
+    sim = tp.rcwa(freq=1 / CLASS_LAM, order=list(CLASS_ORDER), L=L,
+                  dtype=dtype, device=dev, eig_backend=backend)
+    sim.add_input_layer(eps=EPS_SUB)
+    sim.add_output_layer(eps=1.)
+    sim.set_incident_angle(math.radians(WELL_POSED_DEG), 0.)
+    sim.add_layer(thickness=300., eps=occ * si + (1. - occ))
+    sim.add_layer(thickness=200., eps=SU8_EPS)
+    sim.add_layer(thickness=150., eps=circ * EPS_HI + (1. - circ))
+    sim.solve_global_smatrix()
+    return sim
+
+
+def class_txx(sim):
+    """|t_xx(0, 0)|^2 of a solved class instance."""
+    t = sim.S_parameters([0, 0], polarization='xx')
+    return (t.real ** 2 + t.imag ** 2)[0]
+
+
+def pin_check(torch, loss_of, x):
+    """With TF32 switched on by the caller, run loss_of(x) forward and
+    backward while a dispatch mode records the three float32 switches at
+    every product, solve and inverse.  Returns (records forward, records
+    backward, every record pinned, the caller's setting back after each)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torcwa_tpu_torch._constants import _switches
+
+    class Record(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.seen = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func.overloadpacket.__name__ in PINNED_OPS:
+                self.seen.append(_switches())
+            return func(*args, **(kwargs or {}))
+
+    keep = _switches()
+    tf32 = (True, True, 'high')
+    try:
+        torch.set_float32_matmul_precision('high')
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.backends.cudnn.allow_tf32 = True
+        xl = x.detach().clone().requires_grad_(True)
+        with Record() as fwd:
+            T = loss_of(xl)
+        back_f = _switches() == tf32
+        with Record() as bwd:
+            T.backward()
+            torch.cuda.synchronize()
+        back_b = _switches() == tf32
+    finally:
+        torch.set_float32_matmul_precision(keep[2])
+        torch.backends.cuda.matmul.allow_tf32 = keep[0]
+        torch.backends.cudnn.allow_tf32 = keep[1]
+    pinned = all(r == (False, False, 'highest') for r in fwd.seen + bwd.seen)
+    return len(fwd.seen), len(bwd.seen), pinned, back_f and back_b
+
+
+def class_api_phase(torch, tp, ek, smi, dev, out):
+    """Phase 15: the class API on the card (stack of class_stack, order 6,
+    complex64, through the eig kernels) against the same class at
+    complex128 through torch.linalg.eig, and at order 10 against the
+    functional path; launch counts, the kernels by name in a profile,
+    times, device time and idle share, and the scoped pin."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    c64, c128 = torch.complex64, torch.complex128
+    g = tp.geometry(Lx=L[0], Ly=L[1], nx=GRID, ny=GRID, edge_sharpness=1000.,
+                    dtype=torch.float32, device=dev)
+    occ = g.rectangle(180., 100., L[0] / 2., L[1] / 2.)
+    circ = g.circle(80., L[0] / 2., L[1] / 2.)
+    si = tp.aSiH(device=dev).eps(CLASS_LAM)
+    print(f'  a-Si:H eps at {CLASS_LAM} nm from the copied table: '
+          f'{complex(si):.6f}')
+
+    def solve(o, dtype=c64, backend='kernels'):
+        c = circ if dtype == c64 else circ.double()
+        return class_stack(torch, tp, dev, o, c, si, dtype, backend)
+
+    # the path: forward and raster gradient through the kernels
+    ek.reset_launch_counts()
+    o32 = occ.clone().requires_grad_(True)
+    sk = solve(o32)
+    class_txx(sk).backward()
+    torch.cuda.synchronize()
+    launches = dict(ek.LAUNCHES)
+    print(f'  launches of the order-6 class solve, fwd+bwd: {launches}')
+    for k in SMALL:
+        check(launches[k] > 0,
+              f'class API: {k} kernel launched ({launches[k]})')
+    check(not any(v for k, v in launches.items() if k not in SMALL),
+          'class API at order 6: no other eig kernel launched')
+    out['launches'] = {k: launches[k] for k in SMALL}
+    o64 = occ.double().requires_grad_(True)
+    so = solve(o64, c128, 'torch')
+    class_txx(so).backward()
+
+    worst = 0.
+    with torch.no_grad():
+        for pol in ('xx', 'yy', 'pp', 'ss'):
+            for port in ('transmission', 'reflection'):
+                a = sk.S_parameters(CLASS_ORDERS, port=port,
+                                    polarization=pol)
+                b = so.S_parameters(CLASS_ORDERS, port=port,
+                                    polarization=pol)
+                worst = max(worst, float((a.abs().double() ** 2
+                                          - b.abs() ** 2).abs().max()))
+    print(f'  |S|^2 at {len(CLASS_ORDERS)} orders, xx yy pp ss, both ports: '
+          f'kernels (complex64) against torch.linalg.eig (complex128) '
+          f'{worst:.2e}')
+    check(worst <= 1e-4, f'class API |S|^2 vs complex128 oracle: '
+          f'{worst:.2e} <= 1e-4')
+    x = torch.linspace(0., L[0], 16)
+    z = np.linspace(-100., 750., 8)
+    fields = []
+    for s in (sk, so):
+        s.source_planewave(amplitude=[1., 0.])
+        with torch.no_grad():
+            fields.append(s.field_xz(x, z, L[1] / 2.))
+    for i, what in ((0, 'E'), (1, 'H')):
+        fk = torch.stack(fields[0][i]).to(c128)
+        fo = torch.stack(fields[1][i])
+        err = float((fk - fo).abs().max() / fo.abs().max())
+        print(f'  field_xz {what} at 8 z samples: {err:.2e} of max|{what}|')
+        check(err <= 1e-3, f'class API field_xz {what} vs complex128 oracle: '
+              f'{err:.2e} <= 1e-3 of max|{what}|')
+    cos = cosine(o32.grad, o64.grad)
+    print(f'  raster gradient of |t_xx|^2, first layer: cosine {cos:.6f}')
+    check(cos >= 0.99, f'class API raster gradient cosine {cos:.6f} >= 0.99')
+
+    # one layer at order 10 (2N = 882, the large route): class = functional
+    gb = tp.geometry(Lx=L[0], Ly=L[1], nx=GRID, ny=GRID, edge_sharpness=500.,
+                     dtype=torch.float32, device=dev)
+    ob = gb.rectangle(WIDTH, WIDTH, L[0] / 2., L[1] / 2.)
+    eps_b = ob * EPS_HI + (1. - ob)
+    inc = math.radians(WELL_POSED_DEG)
+    ek.reset_launch_counts()
+    sim = tp.rcwa(freq=1 / LAM_L[0], order=list(CLASS_ORDER_L), L=L,
+                  device=dev)
+    sim.add_input_layer(eps=EPS_SUB)
+    sim.set_incident_angle(inc, 0.)
+    sim.add_layer(thickness=THICK, eps=eps_b)
+    sim.solve_global_smatrix()
+    t_cls = class_txx(sim).item()
+    torch.cuda.synchronize()
+    large = {k: ek.LAUNCHES[k] for k in LARGE}
+    out['launches_large'] = large
+    t_fn = float(slice_loss(torch, tp, eps_b, LAM_L, CLASS_ORDER_L, inc,
+                            'kernels')[0])
+    print(f'  order 10, one layer: |t_xx|^2 class {t_cls:.8f}, functional '
+          f'{t_fn:.8f}; large-route launches of the class {large}')
+    check(all(v > 0 for v in large.values()),
+          'class API at order 10 takes the large route')
+    check(abs(t_cls - t_fn) <= 1e-5, f'class API = solve_stack_pair at order '
+          f'10: {abs(t_cls - t_fn):.2e} <= 1e-5')
+
+    # times, profile
+    def fwd():
+        return class_txx(solve(occ))
+
+    def fwd_bwd():
+        o = occ.clone().requires_grad_(True)
+        class_txx(solve(o)).backward()
+
+    ms_f = cuda_ms(torch, fwd, reps=3)
+    ms_fb = cuda_ms(torch, fwd_bwd, reps=3)
+    out['ms'] = (ms_f, ms_fb)
+    print(f'  order-6 class solve (3 layers, 2 patterned): forward '
+          f'{ms_f:.3f} ms, fwd+bwd {ms_fb:.3f} ms (CUDA events, median of 3) '
+          f'[{smi}]')
+    t0 = time.perf_counter()
+    for _ in range(3):
+        fwd_bwd()
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / 3 * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fwd_bwd()
+        torch.cuda.synchronize()
+    ka = prof.key_averages()
+    kern = [e for e in ka if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kern) / 1e3
+    shown = {k for k, ps in STAGE_KERNELS.items()
+             if any(p in e.key for e in kern for p in ps)}
+    library = sorted({e.key for e in ka if 'linalg_eig' in e.key})
+    print(f'  fwd+bwd wall (no profiler, mean of 3) {wall_ms:.3f} ms; device '
+          f'kernels {busy:.3f} ms (idle {1 - busy / wall_ms:.3f} of the wall) '
+          f'[{smi}]')
+    for e in sorted(kern, key=lambda e: e.self_device_time_total,
+                    reverse=True)[:8]:
+        print(f'  {e.self_device_time_total / 1e3:10.3f} ms x{e.count:5d}  '
+              f'{e.key[:100]}')
+    check(shown == set(SMALL), 'the class solve\'s profile shows '
+          'hessenberg, schur_qr and tri_vectors by name')
+    check(not library, f'no library eig in the class solve ({library})')
+    out['device_ms'], out['idle'] = busy, 1 - busy / wall_ms
+
+    n_f, n_b, pinned, back = pin_check(
+        torch, lambda o: class_txx(solve(o)), occ)
+    print(f'  with TF32 on outside: {n_f} products/solves/inverses forward, '
+          f'{n_b} backward; all IEEE f32: {pinned}; TF32 setting back: {back}')
+    check(n_f > 0 and n_b > 0 and pinned and back,
+          'the class pins IEEE f32 forward and backward and restores the '
+          'caller\'s TF32 setting')
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
         print('chip_smoke: CUDA is not available', file=sys.stderr)
         return 2
+    from torcwa_tpu_torch._constants import f32_pinned
+    # the script's own products (the plain versions, the checks) in IEEE
+    # f32 too; each entry point pins and restores on its own
+    with f32_pinned():
+        return run(torch)
+
+
+def run(torch):
     import torcwa_tpu_torch as tp
-    from torcwa_tpu_torch._constants import (f32_precision_pinned,
-                                             pin_f32_precision)
+    from torcwa_tpu_torch._constants import f32_precision_pinned
     from torcwa_tpu_torch.ops import (_build, eig_kernels as ek,
                                       eig_qr as eq, schur_ms as sm,
                                       vec_blocked as vb)
@@ -1932,7 +2174,6 @@ def main():
     print(f'device {name}  count {torch.cuda.device_count()}')
     print(f'nvidia-smi: {smi}')
     print(f'nvcc: {nvcc[-1]}')
-    pin_f32_precision()
     check(f32_precision_pinned(), 'IEEE f32 pinned (no TF32 in matmul or '
           'cudnn, float32 matmul precision highest)')
 
@@ -1996,14 +2237,16 @@ def main():
     for tilt_deg in (0.2, WELL_POSED_DEG):
         grad_checks(torch, tp, eps32, LAMS, (6, 6), tilt_deg)
     grad_checks(torch, tp, eps32, LAMS[3:4], (10, 10), WELL_POSED_DEG)
-    check(f32_precision_pinned(), 'IEEE f32 still pinned after the slice')
+    check(f32_precision_pinned(), 'the script\'s IEEE f32 setting '
+          'holds after the slice')
 
     phase('6. the order-20 slice (2N = 3362, one wavelength, grid 256, '
           'float32, 10 deg)')
     o20 = {}
     order20_slice(torch, tp, ek, dev, o20)
     launches.update({k: o20['launches'][k] for k in LARGE})
-    check(f32_precision_pinned(), 'IEEE f32 still pinned after order 20')
+    check(f32_precision_pinned(), 'the script\'s IEEE f32 setting '
+          'holds after order 20')
 
     phase('7. times (CUDA events, median after one warm-up)')
     print(f'card: {smi}')
@@ -2180,8 +2423,8 @@ def main():
           '8) and one order-7 solve through schur_qr_ms')
     alt_path(torch, tp, ek, dev, A6c, H6, Q6, eps32, alt)
     launches.update(alt['launches'])
-    check(f32_precision_pinned(), 'IEEE f32 still pinned after the '
-          'stand-alone stages')
+    check(f32_precision_pinned(), 'the script\'s IEEE f32 setting holds '
+          'after the stand-alone stages')
 
     phase('11. times of the stand-alone stages (CUDA events, median of 3)')
     print(f'card: {smi}')
@@ -2200,8 +2443,8 @@ def main():
           'schur_qr_packed')
     batched_alt_path(torch, tp, ek, dev, eps32, balt)
     launches.update(balt['launches'])
-    check(f32_precision_pinned(), 'IEEE f32 still pinned after the batched '
-          'stages')
+    check(f32_precision_pinned(), 'the script\'s IEEE f32 setting holds '
+          'after the batched stages')
 
     phase('14. times of the two batched stages (CUDA events, median of 3)')
     print(f'card: {smi}')
@@ -2210,6 +2453,13 @@ def main():
         tk, tpl, shape = times[k]
         print(f'  {k}: kernel {tk:.3f} ms, plain {tpl:.3f} ms, bound '
               f'{bounds[k][0]:.4f} ms by {bounds[k][1]} ({shape}) [{smi}]')
+
+    phase('15. the class API (rcwa) on the card, order 6 through the eig '
+          'kernels, and order 10 against the functional path')
+    cls = {}
+    class_api_phase(torch, tp, ek, smi, dev, cls)
+    check(f32_precision_pinned(), 'the script\'s IEEE f32 setting holds '
+          'after the class API')
 
     if FAILURES:
         print(f'\n{len(FAILURES)} check(s) failed:', *FAILURES, sep='\n  ')
@@ -2225,6 +2475,9 @@ def main():
                 'plain_ms': times[k][1], 'bound_ms': bounds[k][0],
                 'bound_by': bounds[k][1], 'library_ms': library.get(k)}
                for k in REPLACES]
+    for k, n in list(cls['launches'].items()) + list(
+            cls['launches_large'].items()):
+        kernels[list(REPLACES).index(k)].update(class_launches=n)
     kernels[list(REPLACES).index('hessenberg')].update(hess)
     kernels[list(REPLACES).index('schur_qr')].update(
         model_max_rel_err=qr_model_err)

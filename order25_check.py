@@ -35,14 +35,19 @@ def main():
     if not torch.cuda.is_available():
         print('order25_check: CUDA is not available', file=sys.stderr)
         return 2
+    from torcwa_tpu_torch._constants import f32_pinned
+    # the script's own products in IEEE f32 too
+    with f32_pinned():
+        return run(torch)
+
+
+def run(torch):
     import torcwa_tpu_torch as tp
-    from torcwa_tpu_torch._constants import pin_f32_precision
     from torcwa_tpu_torch.ops import (eig_kernels as ek, eig_qr as eq,
                                       schur_ms as sm, vec_blocked as vb)
     from torcwa_tpu_torch.ops.hess_blocked import hessenberg_blocked
     dev = torch.device('cuda', 0)
     c128 = torch.complex128
-    pin_f32_precision()
     smi = cs.smi_line()
     print(f'card: {smi}')
 

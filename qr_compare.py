@@ -7,7 +7,7 @@ multishift QR (csrc/schur_qr_ms.cu) or the blocked triangular eigenvectors
 
     python3 qr_compare.py [--stage schur_qr|hessenberg|tri_vectors|
                                    schur_qr_ms|tri_vectors_blocked|
-                                   unitarity]
+                                   unitarity|gates]
                           [--fmad=false] [DIR ...]
                           (default: this checkout)
 
@@ -57,6 +57,14 @@ card's name and power limit.
   complex64; schur_ms as the route calls it on random matrices at n = 640,
   seeds 640 to 651 (phase 4 takes seed 640), and on the order-20 matrix
   (phase 6) with the device time of its AED launches (torch.profiler).
+* gates: residual and unitarity of schur_qr_ms (m = 16) and of its plain
+  float32 version, run in full, on the inputs of the two card tests whose
+  gates read them (tests/test_torch_cuda.py): the random matrix of seed
+  510 at n = 450, H and Q from the plain reduction (the cluster kernel,
+  test_schur_qr_ms_cluster_kernel_matches_plain), and that of seed 7 at
+  n = 700, H and Q from ek.hessenberg (the one-block kernel,
+  test_schur_qr_ms_one_block_kernel_above_the_cluster); with the stats
+  and each run's seconds.  The plain version takes minutes at n = 700.
 
 Needs a CUDA card; exits non-zero without one.
 """
@@ -318,6 +326,37 @@ def one_unitarity(label):
     print(json.dumps(out), flush=True)
 
 
+def one_gates(label):
+    """--stage gates in the checkout that is the working directory."""
+    sys.path.insert(0, os.getcwd())
+    import time
+    import numpy as np
+    import torch
+    import chip_smoke as cs
+    from torcwa_tpu_torch.ops import eig_kernels as ek, schur_qr_ms as sq
+    dev = torch.device('cuda', 0)
+    out = dict(dir=label, card=cs.smi_line(), stage='gates', m=16)
+    for n, seed, hess in ((450, 510, ek.hessenberg_plain),
+                          (700, 7, ek.hessenberg)):
+        # tests/test_torch_cuda.py::_rand1
+        rng = np.random.default_rng(seed)
+        a = rng.standard_normal((n, n)) + 1j * rng.standard_normal((n, n))
+        A = torch.as_tensor((0.3 * a).astype(np.complex64), device=dev)
+        H, Q = hess(A[None].contiguous())
+        rec = dict(seed=seed, cluster=sq.schur_qr_ms_cluster(n, 16))
+        for key, fn in (('kernel', sq.schur_qr_ms),
+                        ('plain float32', sq.schur_qr_ms_plain)):
+            t0 = time.perf_counter()
+            T, Z, st = fn(H[0], Q[0], m=16, return_stats=True)
+            torch.cuda.synchronize()
+            res, orth, tri = cs.schur_quality(torch, A, T, Z)
+            rec[key] = dict(residual=res, unitarity=orth, triangular=tri,
+                            stats=[int(x) for x in st],
+                            seconds=time.perf_counter() - t0)
+        out[f'n={n}'] = rec
+        print(json.dumps(out), flush=True)
+
+
 def main(args):
     import torch
     if not torch.cuda.is_available():
@@ -342,7 +381,7 @@ def main(args):
 
 
 STAGES = ('schur_qr', 'hessenberg', 'tri_vectors', 'schur_qr_ms',
-          'tri_vectors_blocked', 'unitarity')
+          'tri_vectors_blocked', 'unitarity', 'gates')
 
 if __name__ == '__main__':
     if sys.argv[1:2] == ['--one']:
@@ -357,6 +396,8 @@ if __name__ == '__main__':
             one_tri_vectors_blocked(label)
         elif stage == 'unitarity':
             one_unitarity(label)
+        elif stage == 'gates':
+            one_gates(label)
         else:
             one(label, '--fmad=false' in sys.argv[4:])
     else:

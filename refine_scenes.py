@@ -42,11 +42,16 @@ def main():
     if not torch.cuda.is_available():
         print('refine_scenes: CUDA is not available', file=sys.stderr)
         return 2
+    from torcwa_tpu_torch._constants import f32_pinned
+    # the script's own products in IEEE f32 too
+    with f32_pinned():
+        return run(torch)
+
+
+def run(torch):
     import torcwa_tpu_torch as tp
-    from torcwa_tpu_torch._constants import pin_f32_precision
     from torcwa_tpu_torch.ops import eig_qr as eq
     dev = torch.device('cuda', 0)
-    pin_f32_precision()
     print(f'card: {cs.smi_line()}')
     eps, _ = cs.wave_matrices(torch, tp, (6, 6), cs.LAMS[:1], 0.,
                               torch.float32, dev)

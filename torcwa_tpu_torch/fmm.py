@@ -18,10 +18,10 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ._constants import (PI_REF, complex_dtype_of, pin_f32_precision,
-                         real_dtype_of)
+from ._constants import PI_REF, complex_dtype_of, pinned, real_dtype_of
 from .core import (bdp_apply, bdp_dense, bdp_inv, interface_smatrix_in,
-                   interface_smatrix_out, kz_conj_branch, vmat)
+                   interface_smatrix_out, kz_conj_branch, matching_indices,
+                   redheffer_product, vmat)
 from .ops.cplx import csqrt
 from .ops.eig import eig
 from .ops.fourier import material_conv
@@ -40,10 +40,11 @@ class StackSpec(NamedTuple):
     homogeneous: tuple = ()
 
 
-def _not_ported(what, item):
+def _not_ported(what):
     raise NotImplementedError(
-        f'{what} is not ported to torcwa_tpu_torch yet (ROADMAP.md, '
-        f'still to be ported: {item})')
+        f'{what} is not ported to the functional path yet (ROADMAP.md, '
+        f'Queue 1 item 2, the rest of fmm.py); the class torcwa_tpu_torch.'
+        f'rcwa has it')
 
 
 def kvectors_real(freq, inc_ang, azi_ang, n_ref, order, L, rdtype):
@@ -139,18 +140,10 @@ def _layer_smatrix_body(eps_conv, kx, ky, Vf_inv, omega, thickness,
 
 def redheffer_pair(Sm, Sn):
     """Star product of dense S-matrices [S11, S21, S12, S22]."""
-    S11m, S21m, S12m, S22m = Sm
-    S11n, S21n, S12n, S22n = Sn
-    eye = _eye_like(S11m)
-    t1 = torch.linalg.inv(eye - S12m @ S21n)
-    t2 = torch.linalg.inv(eye - S21n @ S12m)
-    S11 = S11n @ (t1 @ S11m)
-    S21 = S21m + S22m @ (t2 @ (S21n @ S11m))
-    S12 = S12n + S11n @ (t1 @ (S12m @ S22n))
-    S22 = S22m @ (t2 @ S22n)
-    return [S11, S21, S12, S22]
+    return redheffer_product(Sm, Sn)[0]
 
 
+@pinned
 def solve_stack_pair(spec, freq, inc_ang, azi_ang, eps_grids, thicknesses,
                      eps_in=None, eps_out=None, broadening='auto',
                      eig_backend='kernels', mu_grids=None, eps_scalars=None,
@@ -179,20 +172,21 @@ def solve_stack_pair(spec, freq, inc_ang, azi_ang, eps_grids, thicknesses,
         'scan' itself is not ported yet.
 
     Returns ([S11, S21, S12, S22], internals), each block (B, 2N, 2N).
+    Forward and backward run in IEEE f32 (``_constants.pinned``).
     """
     if mu_grids is not None or mu_scalars is not None or mu_in is not None \
             or mu_out is not None:
-        _not_ported('magnetic materials (mu_*)', 'class API and magnetic '
-                    'layers')
+        _not_ported('magnetic materials (mu_*)')
     if eps_scalars is not None or any(spec.homogeneous):
-        _not_ported('homogeneous layers', 'class API and homogeneous layers')
+        _not_ported('homogeneous layers')
     if with_modes:
-        _not_ported('with_modes', 'fields.py and mode propagation')
+        _not_ported('with_modes (mode propagation for fields)')
     if avoid_pinv_instability:
-        _not_ported('avoid_pinv_instability', 'class API Pinv fallback')
+        _not_ported('avoid_pinv_instability (the Pinv fallback)')
     if fold not in ('auto', 'unroll'):
-        _not_ported(f'fold={fold!r}', 'scan fold over deep stacks')
-    pin_f32_precision()
+        raise NotImplementedError(
+            f'fold={fold!r} is not ported yet (ROADMAP.md, Queue 1 item 2, '
+            f'the rest of fmm.py)')
 
     grids = torch.as_tensor(eps_grids if eps_grids is not None else
                             eps_in if spec.has_input else eps_out)
@@ -253,13 +247,6 @@ def solve_stack_pair(spec, freq, inc_ang, azi_ang, eps_grids, thicknesses,
     return S, internals
 
 
-def _match(orders, order):
-    orders = np.asarray(orders, dtype=np.int64).reshape(-1, 2)
-    m = np.clip(orders[:, 0], -order[0], order[0])
-    n = np.clip(orders[:, 1], -order[1], order[1])
-    return (2 * order[1] + 1) * (m + order[0]) + (n + order[1])
-
-
 def sparam_xy_pair(S, kx, ky, eps_in, eps_out, order, orders, ref_order,
                    polarization='xx', direction='forward',
                    port='transmission', evanescent=1e-3, mu_in=None,
@@ -269,11 +256,10 @@ def sparam_xy_pair(S, kx, ky, eps_in, eps_out, order, orders, ref_order,
     result is complex (..., n_orders).  Non-finite values read as 0.
     mu_in / mu_out (magnetic claddings) are not ported yet: only None."""
     if mu_in is not None or mu_out is not None:
-        _not_ported('magnetic materials (mu_*)', 'class API and magnetic '
-                    'layers')
+        _not_ported('magnetic materials (mu_*)')
     N = (2 * order[0] + 1) * (2 * order[1] + 1)
-    oi = _match(orders, order)
-    ri = _match(np.asarray(ref_order).reshape(1, 2), order)
+    oi = matching_indices(orders, order)
+    ri = matching_indices(np.asarray(ref_order).reshape(1, 2), order)
     oi_p = torch.as_tensor(oi + (N if polarization in ('yx', 'yy') else 0))
     ri_p = torch.as_tensor(ri + (N if polarization in ('xy', 'yy') else 0))
     cdt = S[0].dtype
@@ -308,6 +294,7 @@ def sparam_xy_pair(S, kx, ky, eps_in, eps_out, order, orders, ref_order,
     return torch.where(bad, torch.zeros_like(s), s)
 
 
+@pinned
 def simulate_txx(spec, freq, eps_grid, thickness, eps_in,
                  eig_backend='kernels', inc_ang=0.):
     """|t_xx(0,0)|^2 of one patterned layer on a substrate (the input

@@ -20,7 +20,7 @@ a test oracle only).
 
 import torch
 
-from .._constants import pin_f32_precision
+from .._constants import f32_pinned, pinned
 from .eig_qr import eig_qr
 
 __all__ = ['eig', 'eig_backward', 'Eig']
@@ -74,13 +74,14 @@ class _EigFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gw, gV):
         w, V = ctx.saved_tensors
-        return eig_backward(w, V, gw, gV, ctx.broadening), None, None
+        with f32_pinned():
+            return eig_backward(w, V, gw, gV, ctx.broadening), None, None
 
 
+@pinned
 def eig(A, broadening='auto', backend='kernels'):
     """Eigendecomposition (w, V) of a general complex (..., n, n) tensor
-    with the broadened VJP."""
-    pin_f32_precision()
+    with the broadened VJP, forward and backward in IEEE f32."""
     if not A.is_complex():
         A = A.to(torch.complex64 if A.dtype == torch.float32
                  else torch.complex128)

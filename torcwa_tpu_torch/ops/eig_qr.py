@@ -31,7 +31,7 @@ TPU's VMEM-driven ``_HBM_MIN_N_SINGLE``.
 
 import torch
 
-from .._constants import pin_f32_precision
+from .._constants import f32_pinned
 from .eig_kernels import hessenberg, schur_qr, tri_vectors
 from .hess_blocked import hessenberg_blocked
 from .schur_ms import schur_ms
@@ -98,7 +98,6 @@ def large_shifts(n):
 def _eig_large(A):
     """One (n, n) matrix through the large-n route: (w, V), V = Z Y not
     yet normalised."""
-    pin_f32_precision()
     H, Q = hessenberg_blocked(A)
     T, Z = schur_ms(H, Q, m=large_shifts(A.shape[-1]),
                     defl_mult=LARGE_DEFL_MULT)
@@ -143,10 +142,11 @@ def eig_qr(A):
     n = A.shape[-1]
     batch = A.shape[:-2]
     A3 = A.reshape(-1, n, n).contiguous()
-    if n >= LARGE_MIN_N:
-        lanes = [_eig_large(a) for a in A3]
-        w, V = _finish(A3, torch.stack([l[0] for l in lanes]),
-                       torch.stack([l[1] for l in lanes]))
-    else:
-        w, V = eig_small(A3)
+    with f32_pinned():
+        if n >= LARGE_MIN_N:
+            lanes = [_eig_large(a) for a in A3]
+            w, V = _finish(A3, torch.stack([l[0] for l in lanes]),
+                           torch.stack([l[1] for l in lanes]))
+        else:
+            w, V = eig_small(A3)
     return w.reshape(batch + (n,)), V.reshape(batch + (n, n))

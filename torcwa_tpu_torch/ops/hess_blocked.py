@@ -4,7 +4,7 @@ Counterpart of ``torcwa_tpu/ops/hess_blocked.py`` (LAPACK zgehrd's panel
 algorithm, dlahr2 structure), which is plain XLA in the JAX package and
 holds no Pallas kernel; here it is plain torch on native complex tensors,
 so the GEMV and GEMM calls go to cuBLAS on the card.  Callers pin IEEE
-float32 (``_constants.pin_f32_precision``).
+float32 (``_constants.f32_pinned``).
 
 Per panel starting at column k0, width p, trailing size t = n - k0:
   Q_p = P_k0 ... P_k0+p-1 = I - V T V^H                    (compact WY)
