@@ -6,8 +6,11 @@ large-n route, the composed eig through the two stand-alone Schur
 stages (schur_qr_v2 on the order-6 batch, schur_qr_ms on one matrix at
 orders 6 to 8 and inside one order-(7, 7) solve), the order-6 and order-7
 8-wavelength sweeps through the two batched stages that are on no route
-(schur_qr_baed, schur_qr_packed), and a three-layer stack through the
-class API (rcwa, with the a-Si:H table of materials).
+(schur_qr_baed, schur_qr_packed), a three-layer stack through the
+class API (rcwa, with the a-Si:H table of materials), and the two
+optimisation examples (examples/torch/, Examples 5 and 6 at their published
+orders, one matrix at n = 882 and 1054 through the large route) for a few
+ADAM steps through optim.maximize_adam.
 
     python3 chip_smoke.py
 
@@ -86,6 +89,19 @@ Phases (each prints its results; any failure exits non-zero):
      name in a profile and no library eig, times, device time and idle
      share; with TF32 switched on outside, every product, solve and inverse
      of the forward and backward in IEEE f32 and the setting restored
+ 16. Example 5 (examples/torch/example5_shape_optimization.py: a-Si:H
+     rectangle, 532 nm, order (10, 10), grid 300 x 300, FoM |t_yy - t_xx|)
+     at its published configuration: EX_STEPS ADAM steps through
+     maximize_adam and the eig kernels; every FoM and gradient finite, the
+     FoM up, step 0 against the complex128 torch.linalg.eig oracle, a
+     profiled step that names schur_ms's and tri_vectors_blocked's kernels
+     and no library eig, the gradient at 10 degrees against the oracle's;
+     s/iter beside the same loop through torch.linalg.eig (complex64),
+     device time, idle share, peak memory, schur_ms's launches a step, and
+     the large route's stages alone on the layer's matrix (n = 882)
+ 17. Example 6 (example6_topology_optimization.py: 700 x 300 nm cell,
+     order (15, 8), grid 700 x 300, blur, projection, symmetrization) the
+     same way (n = 1054); at 10 degrees the whole-density gradient cosine
 The line before the last is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}.  Needs no JAX and no network.
 """
@@ -213,6 +229,14 @@ SU8_EPS = 1.6 ** 2
 CLASS_ORDERS = [[0, 0], [1, 0], [0, 1], [-1, 0], [1, 1], [2, 0]]
 # one layer through the class and the functional path on the large route
 CLASS_ORDER_L = (10, 10)
+# Examples 5 and 6 at their published configurations (phases 16, 17):
+# ADAM steps through maximize_adam, the first of which the s/iter median
+# leaves out
+EX_STEPS = 3
+EX_NAMES = ('example5_shape_optimization', 'example6_topology_optimization')
+# the azimuth of each example's 10-degree gradient check: Example 6 reads
+# the (1, 0) order, which turns evanescent in air tilted toward +x
+EX_AZI_DEG = {'example5': 0., 'example6': 180.}
 # the ops whose float32 setting the pin check records: the products,
 # solves and inverses of the forward and of torch's backward formulas
 PINNED_OPS = {'mm', 'bmm', 'addmm', 'baddbmm', 'mv', 'addmv', 'dot',
@@ -281,6 +305,18 @@ def cuda_ms(torch, fn, reps=5):
         b.synchronize()
         ts.append(a.elapsed_time(b))
     return statistics.median(ts)
+
+
+def once_ms(torch, fn):
+    """Milliseconds of one run of fn() between CUDA events (no warm-up:
+    for work whose kernels already ran)."""
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b)
 
 
 def nearest_err(w, w_ref):
@@ -774,6 +810,10 @@ def large_kernel_checks(torch, ek, dev):
           f'(hi, sweeps, aed, skipped) {st[:4]}, {vs_pr5("n=640", st)}; '
           f'eigenvalues vs complex128 {d:.2e}; residual {res:.2e}; '
           f'unitarity {orth:.2e}')
+    # the gate at float32's noise floor: on this input (seed 640) the
+    # kernel read unitarity 9.894e-6 and residual 5.58e-6, its plain
+    # float32 version 5.126e-6 and 5.79e-6 on the same H (qr_compare.py
+    # --stage gates, NVIDIA H100 80GB HBM3 at 700 W): within 2x, no fault
     check(st[0] == 0 and d <= 1e-4 and res <= 1e-5 and orth <= 1e-5 and tri,
           f'schur_ms n={N_BIG}: converged, eigenvalues <= 1e-4, residual and '
           'unitarity <= 1e-5')
@@ -2140,6 +2180,213 @@ def class_api_phase(torch, tp, ek, smi, dev, out):
           'caller\'s TF32 setting')
 
 
+def load_example(name):
+    """The port's example script examples/torch/<name>.py as a module."""
+    import importlib.util
+    import os
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        'examples', 'torch', f'{name}.py')
+    spec = importlib.util.spec_from_file_location(f'torch_{name}', path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def adam_run(torch, tp, fom, p0, kw, steps, state=None):
+    """maximize_adam for `steps` steps: (params, (m, v, step), history,
+    ms of each step between CUDA events recorded at its callback)."""
+    ev = [torch.cuda.Event(enable_timing=True)]
+    ev[0].record()
+
+    def mark(rec):
+        ev.append(torch.cuda.Event(enable_timing=True))
+        ev[-1].record()
+
+    params, opt, hist = tp.optim.maximize_adam(fom, p0, steps, callback=mark,
+                                               state=state, **kw)
+    torch.cuda.synchronize()
+    return params, opt, hist, [a.elapsed_time(b) for a, b in zip(ev, ev[1:])]
+
+
+def layer_matrix(torch, tp, spec, eps, lam):
+    """A = P Q of one raster layer at normal incidence, (n, n)."""
+    from torcwa_tpu_torch.ops.fourier import material_conv
+    freq = torch.tensor([1. / lam], dtype=torch.float32, device=eps.device)
+    kx, ky = tp.kvectors_real(freq, 0., 0., 1., spec.order, spec.L,
+                              torch.float32)
+    P, Q = tp.pq_pair(material_conv(eps, spec.order), kx, ky)
+    return (P @ Q)[0].contiguous()
+
+
+def op_names_mode():
+    """A dispatch mode class that collects the names of the operators run
+    inside it (``names``)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class OpNames(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.names = set()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.names.add(func.overloadpacket.__name__)
+            return func(*args, **(kwargs or {}))
+
+    return OpNames
+
+
+def example_phase(torch, tp, ek, smi, dev, name, out):
+    """Phases 16 and 17: an optimisation example at its published
+    configuration through maximize_adam and the eig kernels (the large
+    route), EX_STEPS ADAM steps: finite FoMs and gradients, the FoM up,
+    step 0 against the complex128 torch.linalg.eig oracle, the kernels by
+    name in a profiled step and no library eig; at 10 degrees the gradient
+    against the oracle's; s/iter beside the same loop through
+    torch.linalg.eig (complex64), device time, idle share, peak memory;
+    the large route's stages alone on the layer's matrix."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from torcwa_tpu_torch.ops import (eig_qr as eq, schur_ms as sm,
+                                      vec_blocked as vb)
+    from torcwa_tpu_torch.ops.hess_blocked import hessenberg_blocked
+    OpNames = op_names_mode()
+    ex = load_example(name)
+    label = name.split('_')[0]
+    n = 2 * (2 * ex.ORDER[0] + 1) * (2 * ex.ORDER[1] + 1)
+    kw = ex.loop_kwargs()
+    args = kw.get('fom_args_schedule', lambda step: ())
+    p0 = ex.initial_params(ex.GRID, dev)
+    print(f'  {label}: order {ex.ORDER} (n = {n}), grid {ex.GRID}, float32, '
+          f'{EX_STEPS} ADAM steps through maximize_adam')
+    fom = ex.make_fom(ex.ORDER, ex.GRID, dev)
+    stamps = [('start', time.perf_counter())]
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()      # what earlier phases hold
+    ek.reset_launch_counts()
+    params, opt, hist, ms = adam_run(torch, tp, fom, p0, kw, EX_STEPS)
+    launches = dict(ek.LAUNCHES)
+    peak = (torch.cuda.max_memory_allocated() - held) / 1e9
+    # one more step under the profiler, from the state the loop left: its
+    # FoM is the FoM after step EX_STEPS.  Device activity only (the host
+    # side's ~1e5 operator events of a step take longer to record and sum
+    # than the step); the operators' names from a dispatch mode instead
+    with profile(activities=[ProfilerActivity.CUDA]) as prof, \
+            OpNames() as ops:
+        f_end = tp.optim.maximize_adam(fom, None, 1, state=(params, *opt),
+                                       **kw)[2][0][0]
+        torch.cuda.synchronize()
+    stamps.append(('loop', time.perf_counter()))
+    fom_o = ex.make_fom(ex.ORDER, ex.GRID, dev, torch.float64, 'torch')
+    with torch.no_grad():
+        f_o = float(fom_o(p0.double(), *args(0)))
+    stamps.append(('oracle', time.perf_counter()))
+    foms = [h[0] for h in hist]
+    print(f'  FoM per step {foms}, after step {EX_STEPS} {f_end:.8g}; '
+          f'gradient norms {[h[1] for h in hist]}')
+    print(f'  step 0: kernels {foms[0]:.8g}, complex128 torch.linalg.eig '
+          f'oracle {f_o:.8g}; launches {launches}')
+    check(all(math.isfinite(x) for h in hist for x in h)
+          and math.isfinite(f_end), f'{label}: every FoM and gradient finite')
+    check(f_end > foms[0], f'{label}: FoM after step {EX_STEPS} '
+          f'{f_end:.8g} above step 0\'s {foms[0]:.8g}')
+    check(abs(foms[0] - f_o) <= 1e-4, f'{label}: step 0 FoM vs complex128 '
+          f'oracle {abs(foms[0] - f_o):.2e} <= 1e-4')
+    check(all(launches[k] > 0 for k in LARGE) and
+          not any(v for k, v in launches.items() if k not in LARGE),
+          f'{label}: the large route\'s kernels launched, no other')
+
+    ka = prof.key_averages()
+    kern = [e for e in ka if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kern) / 1e3
+    ms_k = sum(e.self_device_time_total for e in kern
+               if '::ms_' in e.key) / 1e3
+    vec_k = sum(e.self_device_time_total for e in kern
+                if 'tri_vectors_block_kernel' in e.key) / 1e3
+    library = sorted(k for k in ops.names if 'linalg_eig' in k)
+    s_iter = statistics.median(ms[1:])
+    print(f'  s/iter through the kernels {s_iter / 1e3:.6f} (CUDA events, '
+          f'median of steps 2-{EX_STEPS}; steps {[round(x, 1) for x in ms]} '
+          f'ms) [{smi}]')
+    print(f'  profiled step: device kernels {busy:.1f} ms (idle '
+          f'{1 - busy / s_iter:.3f} of the unprofiled step), the schur_ms '
+          f'functions {ms_k:.1f} ms in {launches["schur_ms"] / EX_STEPS:.0f} '
+          f'launches a step, tri_vectors_block_kernel {vec_k:.2f} ms in '
+          f'{launches["tri_vectors_blocked"] / EX_STEPS:.0f}; peak memory '
+          f'of the loop {peak:.3f} GB above what was held before it '
+          f'[{smi}]')
+    for e in sorted(kern, key=lambda e: e.self_device_time_total,
+                    reverse=True)[:6]:
+        print(f'  {e.self_device_time_total / 1e3:10.3f} ms x{e.count:5d}  '
+              f'{e.key[:100]}')
+    check(ms_k > 0 and vec_k > 0, f'{label}: the profile shows schur_ms\'s '
+          'and tri_vectors_blocked\'s kernels')
+    check(not library, f'{label}: no library eig in the kernels\' run '
+          f'({library})')
+
+    fom_l = ex.make_fom(ex.ORDER, ex.GRID, dev, eig_backend='torch')
+    _, _, hist_l, ms_l = adam_run(torch, tp, fom_l, p0, kw, EX_STEPS)
+    s_lib = statistics.median(ms_l[1:])
+    stamps.append(('library', time.perf_counter()))
+    print(f'  s/iter through torch.linalg.eig (complex64) '
+          f'{s_lib / 1e3:.6f} (steps {[round(x, 1) for x in ms_l]} ms; '
+          f'step 0 FoM {hist_l[0][0]:.8g}) [{smi}]')
+
+    # the gradient at 10 degrees against the oracle's (FoM and gradient at
+    # a tilt: at normal incidence a symmetric cell's degenerate mode pairs
+    # leave the eig's gradient ill posed in any precision)
+    grads = []
+    for dtype, backend in ((torch.float32, 'kernels'),
+                           (torch.float64, 'torch')):
+        f = ex.make_fom(ex.ORDER, ex.GRID, dev, dtype, backend,
+                        inc_deg=WELL_POSED_DEG, azi_deg=EX_AZI_DEG[label])
+        p = p0.to(dtype).requires_grad_(True)
+        grads.append(torch.autograd.grad(f(p, *args(0)), p)[0])
+    if label == 'example5':
+        err = float((grads[0].double() - grads[1]).norm() / grads[1].norm())
+        print(f'  10 deg: dFoM/dW kernels {grads[0].tolist()}, oracle '
+              f'{grads[1].tolist()}: relative error {err:.2e}')
+        check(err <= 1e-2, f'{label}: 10-degree gradient vs complex128 '
+              f'oracle {err:.2e} <= 1e-2')
+    else:
+        cos = cosine(grads[0], grads[1])
+        print(f'  10 deg: whole-density gradient cosine {cos:.6f}')
+        check(cos >= 0.99, f'{label}: 10-degree density gradient cosine '
+              f'{cos:.6f} >= 0.99')
+
+    stamps.append(('tilt', time.perf_counter()))
+
+    # the large route on the layer's matrix at step 0, stage by stage, one
+    # run each (the loop above warmed every kernel)
+    spec, eps_of = ex.make_layer(ex.ORDER, ex.GRID, dev)
+    with torch.no_grad():
+        A = layer_matrix(torch, tp, spec, eps_of(p0, *args(0)), ex.LAMB0)
+    H, Q = hessenberg_blocked(A)
+    cfg = dict(m=eq.large_shifts(n), defl_mult=eq.LARGE_DEFL_MULT)
+    T, Z, st = sm.schur_ms(H, Q, return_stats=True, **cfg)
+    t = {'eig_qr': once_ms(torch, lambda: eq.eig_qr(A)),
+         'hessenberg_blocked': once_ms(torch, lambda: hessenberg_blocked(A)),
+         'schur_ms': once_ms(torch, lambda: sm.schur_ms(H, Q, **cfg)),
+         'tri_vectors_blocked': once_ms(torch,
+                                        lambda: vb.tri_vectors_blocked(T)),
+         'torch.linalg.eig': once_ms(torch, lambda: torch.linalg.eig(A))}
+    b_ms = bound(4 * n * n * C64, st[5])
+    b_vec = bound(2 * n * n * C64, n ** 3 / 6 * 8)
+    print(f'  the large route at n = {n}: ' + ', '.join(
+        f'{k} {v:.1f} ms' for k, v in t.items()) + f' (schur_ms stats (hi, '
+        f'sweeps, aed, skipped) {tuple(int(x) for x in st[:4])}, bound '
+        f'{b_ms[0]:.4f} ms by {b_ms[1]}; tri_vectors_blocked bound '
+        f'{b_vec[0]:.4f} ms by {b_vec[1]}); eig_qr is '
+        f'{t["eig_qr"] / s_iter:.3f} of a step [{smi}]')
+    stamps.append(('route', time.perf_counter()))
+    print('  seconds by part: ' + ', '.join(
+        f'{k} {b - a:.1f}' for (_, a), (k, b) in zip(stamps, stamps[1:])))
+    out[label] = dict(
+        n=n, s_iter=s_iter, s_iter_library=s_lib, device_ms=busy,
+        idle=1 - busy / s_iter, peak_gb=peak, route_ms=t,
+        launches_per_step={k: launches[k] / EX_STEPS for k in LARGE},
+        schur_ms_profile_ms=ms_k, schur_ms_bound=b_ms, vectors_bound=b_vec)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2461,6 +2708,14 @@ def run(torch):
     check(f32_precision_pinned(), 'the script\'s IEEE f32 setting holds '
           'after the class API')
 
+    exs = {}
+    for i, ex_name in enumerate(EX_NAMES):
+        phase(f'{16 + i}. {ex_name} at its published configuration, '
+              f'{EX_STEPS} ADAM steps through the eig kernels')
+        example_phase(torch, tp, ek, smi, dev, ex_name, exs)
+        check(f32_precision_pinned(), 'the script\'s IEEE f32 setting holds '
+              f'after {ex_name}')
+
     if FAILURES:
         print(f'\n{len(FAILURES)} check(s) failed:', *FAILURES, sep='\n  ')
         return 1
@@ -2479,6 +2734,10 @@ def run(torch):
             cls['launches_large'].items()):
         kernels[list(REPLACES).index(k)].update(class_launches=n)
     kernels[list(REPLACES).index('hessenberg')].update(hess)
+    for k in LARGE:
+        kernels[list(REPLACES).index(k)].update(examples={
+            lab: dict(n=e['n'], launches_per_step=e['launches_per_step'][k],
+                      ms=e['route_ms'][k]) for lab, e in exs.items()})
     kernels[list(REPLACES).index('schur_qr')].update(
         model_max_rel_err=qr_model_err)
     kernels[list(REPLACES).index('schur_ms')].update(

@@ -57,14 +57,18 @@ card's name and power limit.
   complex64; schur_ms as the route calls it on random matrices at n = 640,
   seeds 640 to 651 (phase 4 takes seed 640), and on the order-20 matrix
   (phase 6) with the device time of its AED launches (torch.profiler).
-* gates: residual and unitarity of schur_qr_ms (m = 16) and of its plain
-  float32 version, run in full, on the inputs of the two card tests whose
-  gates read them (tests/test_torch_cuda.py): the random matrix of seed
-  510 at n = 450, H and Q from the plain reduction (the cluster kernel,
+* gates: residual and unitarity of a Schur stage and of its plain float32
+  version, run in full, on the inputs of three gates that read them:
+  schur_ms as the route calls it on the random matrix of seed 640 at
+  n = 640, H and Q from hessenberg_blocked (chip_smoke.py phase 4); and
+  schur_qr_ms (m = 16) on those of the two card tests
+  (tests/test_torch_cuda.py): the random matrix of seed 510 at n = 450, H
+  and Q from the plain reduction (the cluster kernel,
   test_schur_qr_ms_cluster_kernel_matches_plain), and that of seed 7 at
   n = 700, H and Q from ek.hessenberg (the one-block kernel,
   test_schur_qr_ms_one_block_kernel_above_the_cluster); with the stats
-  and each run's seconds.  The plain version takes minutes at n = 700.
+  and each run's seconds.  The plain versions take minutes at n = 640 and
+  700.
 
 Needs a CUDA card; exits non-zero without one.
 """
@@ -333,9 +337,27 @@ def one_gates(label):
     import numpy as np
     import torch
     import chip_smoke as cs
-    from torcwa_tpu_torch.ops import eig_kernels as ek, schur_qr_ms as sq
+    from torcwa_tpu_torch.ops import (eig_kernels as ek, eig_qr as eq,
+                                      schur_ms as sm, schur_qr_ms as sq)
+    from torcwa_tpu_torch.ops.hess_blocked import hessenberg_blocked
     dev = torch.device('cuda', 0)
     out = dict(dir=label, card=cs.smi_line(), stage='gates', m=16)
+    # chip_smoke.py phase 4: schur_ms as the route calls it at n = 640
+    A = cs.rand_c64(torch, cs.N_BIG, 640, dev)
+    H, Q = hessenberg_blocked(A)
+    cfg = dict(m=eq.large_shifts(cs.N_BIG), defl_mult=eq.LARGE_DEFL_MULT)
+    rec = dict(seed=640, **cfg)
+    for key, fn in (('kernel', sm.schur_ms),
+                    ('plain float32', sm.schur_ms_plain)):
+        t0 = time.perf_counter()
+        T, Z, st = fn(H, Q, return_stats=True, **cfg)
+        torch.cuda.synchronize()
+        res, orth, tri = cs.schur_quality(torch, A, T, Z)
+        rec[key] = dict(residual=res, unitarity=orth, triangular=tri,
+                        stats=[int(x) for x in st[:4]],
+                        seconds=time.perf_counter() - t0)
+    out[f'schur_ms n={cs.N_BIG}'] = rec
+    print(json.dumps(out), flush=True)
     for n, seed, hess in ((450, 510, ek.hessenberg_plain),
                           (700, 7, ek.hessenberg)):
         # tests/test_torch_cuda.py::_rand1

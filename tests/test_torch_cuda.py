@@ -846,3 +846,83 @@ def test_class_device_none_solves_on_the_card(dev):
         sim.solve_global_smatrix()
         assert sim.S[0].device.type == 'cuda'
         assert sim.S_parameters([0, 0]).device.type == 'cuda'
+
+
+def test_functional_mixed_stack_on_the_card_matches_the_cpu(dev):
+    # patterned, homogeneous, patterned at order (3, 3), complex64, 10 deg,
+    # modes carried: the eig kernels on the card against their plain
+    # versions on the CPU; |S|^2 at four orders within 1e-4 (as the class
+    # is held), the S-blocks within 1e-3 of their largest entry (evanescent
+    # orders' entries reach past 1), the tensors on the card
+    import torcwa_tpu_torch as tp
+    rng = np.random.default_rng(12)
+    eps = 1.5 + 2 * rng.random((2, 48, 48)).astype(np.float32)
+    spec = tp.StackSpec(order=(3, 3), L=(300., 300.), n_layers=3,
+                        has_input=True, has_output=True,
+                        homogeneous=(False, True, False))
+
+    def solve(device):
+        return tp.solve_stack_pair(
+            spec, 1 / 532., np.radians(10.), 0.,
+            torch.as_tensor(eps, device=device), [200., 100., 150.],
+            eps_in=1.46 ** 2, eps_out=1., eps_scalars=[2.56],
+            with_modes=True)
+
+    ek.reset_launch_counts()
+    Sg, ig = solve(dev)
+    assert ek.LAUNCHES['schur_qr'] > 0
+    assert Sg[0].device.type == 'cuda' and ig['C'][0][0].device.type == 'cuda'
+    Sc, ic = solve('cpu')
+    for a, b in zip(Sg, Sc):
+        assert float((a.cpu() - b).abs().max()) <= 1e-3 * float(b.abs().max())
+    orders = [[0, 0], [1, 0], [0, 1], [-1, -1]]
+    for pol in ('xx', 'yy'):
+        for port in ('transmission', 'reflection'):
+            t = [tp.sparam_xy_pair(S, i['kx'], i['ky'], 1.46 ** 2, 1., (3, 3),
+                                   orders, [0, 0], pol, port=port).cpu()
+                 for S, i in ((Sg, ig), (Sc, ic))]
+            assert float((t[0].abs() ** 2 - t[1].abs() ** 2).abs().max()) \
+                <= 1e-4
+
+
+def test_maximize_adam_on_the_card_matches_the_cpu(dev):
+    # two ADAM steps on |t_xx|^2 + |t_yy|^2 of a raster at order (3, 3),
+    # float32, 10 deg: the card through the kernels against the CPU through
+    # their plain versions; the FoMs within 1e-4 and the gradient norms
+    # within 1e-3 of theirs at both steps, every tensor of the state on the
+    # card.  (A first ADAM step moves each pixel by ~lr sign(g), so the
+    # parameters themselves are not compared.)
+    import torcwa_tpu_torch as tp
+    spec = tp.StackSpec(order=(3, 3), L=(300., 300.), n_layers=1)
+
+    def fom(e):
+        S, i = tp.solve_stack_pair(spec, 1 / 530., np.radians(10.), 0.,
+                                   e[None], [250.], eps_in=1.46 ** 2)
+        return sum(tp.sparam_xy_pair(S, i['kx'], i['ky'], 1.46 ** 2, 1.,
+                                     (3, 3), [0, 0], [0, 0], pol)[0].abs() ** 2
+                   for pol in ('xx', 'yy'))
+
+    eps0 = 1.5 + 2 * np.random.default_rng(13).random((40, 40))
+    runs = {}
+    for device in (dev, 'cpu'):
+        e = torch.as_tensor(eps0.astype(np.float32), device=device)
+        runs[str(device)] = tp.optim.maximize_adam(fom, e, 2, lr=0.05,
+                                                   lower=1., upper=4.)
+    (pg, (mg, _, sg), hg), (pc, _, hc) = runs[str(dev)], runs['cpu']
+    assert sg == 2 and pg.device.type == mg.device.type == 'cuda'
+    hg, hc = np.array(hg), np.array(hc)
+    assert np.abs(hg[:, 0] - hc[:, 0]).max() <= 1e-4
+    assert np.all(np.abs(hg[:, 1] - hc[:, 1]) <= 1e-3 * hc[:, 1])
+    assert pc.device.type == 'cpu'
+
+
+def test_load_state_defaults_to_the_card(dev, tmp_path):
+    from torcwa_tpu_torch.utils import load_state, save_state
+    path = str(tmp_path / 'state.npz')
+    save_state(path, {'rho': torch.rand(4, 3, device=dev), 'step': 7,
+                      'm': [torch.zeros(2)]})
+    for kw in ({}, {'device': None}, {'device': dev}):
+        st = load_state(path, **kw)
+        assert st['rho'].device.type == 'cuda' and int(st['step']) == 7
+        assert st['m'][0].device.type == 'cuda'
+    assert load_state(path, device='cpu')['rho'].device.type == 'cpu'

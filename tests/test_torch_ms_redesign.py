@@ -280,12 +280,28 @@ def test_new_keywords_accepted_at_their_defaults_refused_otherwise():
           [0, 0], [0, 0])
     t = tp.sparam_xy_pair(*sp)
     assert torch.equal(tp.sparam_xy_pair(*sp, mu_in=None, mu_out=None), t)
+    # the calls the port once refused, now against the JAX package
+    one = (jnp.asarray(1.), jnp.asarray(0.))
+    jargs = (spec, jnp.asarray(1 / 530.), jnp.asarray(0.1), jnp.asarray(0.3),
+             (jnp.asarray(eps), jnp.zeros(eps.shape)), jnp.asarray(thick))
+    jkw = dict(eps_in=(jnp.asarray(2.1), jnp.asarray(0.)), eps_out=one)
+    S_ref, ir = jf.solve_stack_pair(*jargs, avoid_pinv_instability=True,
+                                    max_pinv_instability=0.01, **jkw)
+    cplx = lambda p: np.asarray(p[0]) + 1j * np.asarray(p[1])
     for bad in (dict(mu_in=1.), dict(mu_out=1.)):
-        with pytest.raises(NotImplementedError, match='ROADMAP'):
-            tp.sparam_xy_pair(*sp, **bad)
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        tp.solve_stack_pair(*args, avoid_pinv_instability=True,
-                            max_pinv_instability=0.01, **kw)
+        ref = jf.sparam_xy_pair(S_ref, ir['kx'], ir['ky'], jkw['eps_in'],
+                                one, (1, 1), [0, 0], [0, 0],
+                                **{k: one for k in bad})
+        got = tp.sparam_xy_pair(*sp, **bad).numpy()
+        assert np.abs(got - cplx(ref)).max() <= 1e-9
+    S_p, intr_p = tp.solve_stack_pair(*args, avoid_pinv_instability=True,
+                                      max_pinv_instability=0.01, **kw)
+    for blk, ref in zip(S_p, S_ref):
+        ref = cplx(ref)
+        assert np.abs(blk.numpy() - ref).max() <= 1e-9 * np.abs(ref).max()
+    for got, ref in zip(intr_p['pinv_instability'],
+                        ir['pinv_instability']):
+        assert np.abs(got.numpy() - np.asarray(ref)).max() <= 1e-12
 
 
 def test_device_none_means_the_card(monkeypatch):

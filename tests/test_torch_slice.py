@@ -165,9 +165,32 @@ def test_two_layers_with_output_cladding_match_jax():
                                 dict(mu_in=1.), dict(
                                     avoid_pinv_instability=True)])
 def test_unported_options_raise(kw):
-    cv = convert.from_jax_pairs(
-        eps_grids=(np.ones((1, 8, 8)), np.zeros((1, 8, 8))), spec=_spec(),
-        device='cpu')
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        tp.solve_stack_pair(cv['spec'], 1 / 500., 0., 0., cv['eps_grids'],
-                            [100.], eps_in=EPS_SUB, **kw)
+    # the four options the port once refused, each now against the JAX
+    # package on one layer at float64: the S-blocks to 1e-9, with modes
+    # each layer's gauge-free E Cf and E Cb, with the fallback its metrics
+    eps = _raster(np.float64)[None]
+    jkw = {k: (jnp.asarray(v), jnp.asarray(0.)) if k == 'mu_in' else v
+           for k, v in kw.items()}
+    S_ref, ir = jax.jit(lambda e: jf.solve_stack_pair(
+        _spec(), jnp.asarray(1 / 500.), jnp.asarray(0.1), jnp.asarray(0.),
+        (e, jnp.zeros_like(e)), jnp.asarray([100.]),
+        eps_in=(jnp.asarray(EPS_SUB), jnp.asarray(0.)), **jkw))(
+            jnp.asarray(eps))
+    cv = convert.from_jax_pairs(eps_grids=(eps, np.zeros_like(eps)),
+                                spec=_spec(), device='cpu')
+    S, intr = tp.solve_stack_pair(cv['spec'], 1 / 500., 0.1, 0.,
+                                  cv['eps_grids'], [100.], eps_in=EPS_SUB,
+                                  **kw)
+    cplx = lambda p: np.asarray(p[0]) + 1j * np.asarray(p[1])
+    for blk, ref in zip(S, S_ref):
+        ref = cplx(ref)
+        assert np.abs(blk.numpy() - ref).max() <= 1e-9 * np.abs(ref).max()
+    if 'with_modes' in kw:
+        E, E_ref = intr['E'][0].numpy(), cplx(ir['E'])[0]
+        for C, C_ref in zip(intr['C'][0], ir['C'][0]):
+            got, ref = E @ C.numpy()[:50], E_ref @ cplx(C_ref)[:50]
+            assert np.abs(got - ref).max() <= 1e-9 * np.abs(ref).max()
+    if 'avoid_pinv_instability' in kw:
+        for got, ref in zip(intr['pinv_instability'],
+                            ir['pinv_instability']):
+            assert np.abs(got.numpy() - np.asarray(ref)).max() <= 1e-12

@@ -25,8 +25,8 @@ __all__ = ['bdp_mul', 'bdp_inv', 'bdp_apply', 'bdp_apply_right',
            'bdp_scale_cols', 'bdp_dense', 'bdp_eye', 'vmat', 'kz_conj_branch',
            'interface_smatrix_in', 'interface_smatrix_out', 'pq_matrices',
            'pq_homogeneous_bdp', 'homogeneous_kz', 'eigen_decomposition',
-           'LayerSolution', 'layer_smatrix', 'layer_smatrix_homogeneous',
-           'redheffer_product', 'redheffer_update_modes', 'matching_indices',
+           'LayerSolution', 'layer_H', 'layer_smatrix',
+           'layer_smatrix_homogeneous', 'redheffer_product', 'redheffer_update_modes', 'matching_indices',
            'diffraction_angles', 'conv_to_grid']
 
 
@@ -129,12 +129,13 @@ def interface_smatrix_out(Vf, Vo):
 def pq_matrices(eps_conv, mu_conv, kx, ky):
     """Wave matrices P (H -> E) and Q (E -> H) of a patterned layer.
 
-    eps_conv, mu_conv (N, N) complex; kx, ky (N,) complex.  The diagonal
-    K matrices of the reference scale rows and columns of the inverses."""
+    eps_conv, mu_conv (..., N, N) complex; kx, ky (..., N), real or
+    complex; leading dimensions broadcast.  The diagonal K matrices of the
+    reference scale rows and columns of the inverses."""
     einv = torch.linalg.inv(eps_conv)
     minv = torch.linalg.inv(mu_conv)
-    kxc, kxr = kx[:, None], kx[None, :]
-    kyc, kyr = ky[:, None], ky[None, :]
+    kxc, kxr = kx[..., :, None], kx[..., None, :]
+    kyc, kyr = ky[..., :, None], ky[..., None, :]
     P = torch.cat([
         torch.cat([kxc * einv * kyr, mu_conv - kxc * einv * kxr], -1),
         torch.cat([-mu_conv + kyc * einv * kyr, -(kyc * einv * kxr)], -1)],
@@ -146,7 +147,8 @@ def pq_matrices(eps_conv, mu_conv, kx, ky):
 
 
 def _pack(b00, b01, b10, b11):
-    return torch.stack([torch.stack([b00, b01]), torch.stack([b10, b11])])
+    return torch.stack([torch.stack([b00, b01], -2),
+                        torch.stack([b10, b11], -2)], -3)
 
 
 def pq_homogeneous_bdp(eps, mu, kx, ky):
@@ -198,12 +200,35 @@ class LayerSolution(NamedTuple):
 
 
 def _phase_of(kz, omega, thickness):
-    """exp(1j omega kz thickness)."""
-    return torch.exp(1j * (omega * thickness) * kz)
+    """exp(1j omega kz thickness); omega * thickness (a tensor) broadcasts
+    against kz's leading dimensions."""
+    return torch.exp(1j * (omega * thickness)[..., None] * kz)
 
 
 def _eye(n, like):
     return torch.eye(n, dtype=like.dtype, device=like.device)
+
+
+def layer_H(P, E, kz, Q=None, max_pinv_instability=0.005):
+    """H-field eigenvectors H = P^-1 E Kz (reference rcwa.py:1249-1262).
+
+    Given Q, the reference's fallback is armed: P is inverted explicitly,
+    and where P^-1 deviates from an inverse by ``max_pinv_instability`` or
+    more (max|P P^-1 - I| or max|P^-1 P - I|, a near-singular P at a Wood
+    anomaly) H = Q E Kz^-1 instead.  Returns (H, instability), instability
+    the detached (Pinv metric, Qinv metric) per matrix with Q, else None.
+    Leading dimensions broadcast."""
+    Ekz = E * kz[..., None, :]
+    if Q is None:
+        return torch.linalg.solve(P, Ekz), None
+    eye = _eye(E.shape[-1], E)
+    Pinv = torch.linalg.inv(P)
+    dev = lambda M: (M - eye).abs().amax((-2, -1))
+    p_ins = torch.maximum(dev(P @ Pinv), dev(Pinv @ P))
+    q_ins = dev(Q @ torch.linalg.inv(Q))
+    H = torch.where((p_ins < max_pinv_instability)[..., None, None],
+                    Pinv @ Ekz, Q @ (E * (1 / kz)[..., None, :]))
+    return H, (p_ins.detach(), q_ins.detach())
 
 
 def layer_smatrix(E, kz, P, Q, Vf_inv, omega, thickness,
@@ -211,24 +236,15 @@ def layer_smatrix(E, kz, P, Q, Vf_inv, omega, thickness,
     """Layer S-matrix referenced to free space (reference rcwa.py:1244-1281).
 
     With M+- = (A +- B phi)^-1 the boundary matrix inverts into G = M+ + M-
-    and D = M+ - M-.  Returns (LayerSolution, instability): instability is
-    (Pinv metric, Qinv metric), detached, with ``avoid_pinv_instability``
-    (H = Q E Kz^-1 where P^-1 deviates from an inverse by
-    ``max_pinv_instability`` or more), else None."""
+    and D = M+ - M-.  Returns (LayerSolution, instability): the fallback
+    and its metrics as :func:`layer_H` gives them with
+    ``avoid_pinv_instability``, else None.  Leading dimensions (layers,
+    wavelengths) broadcast; omega * thickness has them."""
     n2 = E.shape[-1]
     eye = _eye(n2, E)
-    phase = _phase_of(kz, omega, thickness)
-    instability = None
-    if avoid_pinv_instability:
-        Pinv = torch.linalg.inv(P)
-        dev = lambda M: (M - eye).abs().max()
-        p_ins = torch.maximum(dev(P @ Pinv), dev(Pinv @ P))
-        q_ins = dev(Q @ torch.linalg.inv(Q))
-        H = torch.where(p_ins < max_pinv_instability, Pinv @ (E * kz),
-                        Q @ (E * (1 / kz)))
-        instability = (p_ins.detach(), q_ins.detach())
-    else:
-        H = torch.linalg.solve(P, E * kz)
+    phase = _phase_of(kz, omega, thickness)[..., None, :]
+    H, instability = layer_H(P, E, kz, Q if avoid_pinv_instability else None,
+                             max_pinv_instability)
     W = bdp_apply(Vf_inv, H)
     A, B = E + W, E - W
     Bphi = B * phase
@@ -313,12 +329,12 @@ def matching_indices(orders, order):
 
 def diffraction_angles(kx, ky, eps, mu, orders, order, unit='radian'):
     """Propagation angles (inclination, azimuth) of the given orders in a
-    homogeneous cladding (reference rcwa.py:214-262).  kx, ky (N,), real
-    or complex; eps, mu scalars."""
+    homogeneous cladding (reference rcwa.py:214-262).  kx, ky (..., N),
+    real or complex; eps, mu scalars."""
     idx = torch.as_tensor(matching_indices(orders, order), device=kx.device)
     cdt = kx.dtype if kx.is_complex() else (
         torch.complex64 if kx.dtype == torch.float32 else torch.complex128)
-    kxi, kyi = kx[idx].to(cdt), ky[idx].to(cdt)
+    kxi, kyi = kx[..., idx].to(cdt), ky[..., idx].to(cdt)
     k2 = kxi * kxi + kyi * kyi
     kt = csqrt(k2)
     kz = csqrt(torch.as_tensor(eps, dtype=cdt, device=kx.device)

@@ -12,10 +12,11 @@ Counterpart of the segment engine of ``torcwa_tpu/fields.py``
 * the spatial field is synthesised by a dense DFT product, which takes
   arbitrary sample axes (reference rcwa.py:699-705).
 
-The reconstruction reads the solved ``rcwa`` instance's state, runs in
-IEEE f32 forward and backward (``_constants.pinned``), and returns at the
-solver's output convention.  The axes are concrete: which region a z
-sample lies in is decided on the host.
+The reconstruction reads the solved ``rcwa`` instance's state, or the
+same state built by :class:`fmm_field_adapter` from the functional solve's
+outputs, runs in IEEE f32 forward and backward (``_constants.pinned``),
+and returns at the solver's output convention.  The axes are concrete:
+which region a z sample lies in is decided on the host.
 """
 
 import warnings
@@ -25,10 +26,82 @@ import numpy as np
 import torch
 
 from ._constants import pinned
-from .core import bdp_apply, bdp_dense
+from .core import LayerSolution, bdp_apply, bdp_dense
 from .ops.cplx import csqrt
 
-__all__ = ['field_plane', 'field_xy']
+__all__ = ['field_plane', 'field_xy', 'fmm_field_adapter']
+
+
+class fmm_field_adapter:
+    """The solved state that :func:`field_plane` and :func:`field_xy`
+    read, built from ``fmm.solve_stack_pair`` outputs, so the fields of a
+    functional solve come from the class's engine unchanged.
+
+    Args:
+      spec: the StackSpec the stack was solved with.
+      S: the global S blocks of ``solve_stack_pair`` at one wavelength (a
+        scalar freq).
+      internals: its internals; a stack with layers needs
+        ``with_modes=True`` (the ``'C'`` entry).
+      E_i: the incident amplitudes, complex (2N,) or (2N, 1) (e.g.
+        ``fmm.source_planewave_pair``).
+      thicknesses: the layer thicknesses, concrete: which region a z
+        sample lies in is decided on the host.
+      omega: 2 pi freq.
+      eps_in, mu_in, eps_out, mu_out: the claddings (None: 1).
+      source_direction: 'forward' or 'backward'.
+
+    The fields come back as complex tensors, on the device of the solve.
+    """
+
+    def __init__(self, spec, S, internals, E_i, thicknesses, omega,
+                 eps_in=None, mu_in=None, eps_out=None, mu_out=None,
+                 source_direction='forward'):
+        kx = internals['kx']
+        if kx.dim() != 1:
+            raise ValueError('fmm_field_adapter takes one wavelength: solve '
+                             'with a scalar freq')
+        cdt = S[0].dtype
+        self._rdtype, self._device = kx.dtype, kx.device
+        c = lambda v: torch.as_tensor(1. if v is None else v, dtype=cdt,
+                                      device=kx.device)
+        self.order_N = kx.shape[-1]
+        self.omega = omega
+        self.Kx_norm_dn = kx.to(cdt)
+        self.Ky_norm_dn = internals['ky'].to(cdt)
+        self.E_i_vec = torch.as_tensor(E_i, dtype=cdt,
+                                       device=kx.device).reshape(-1, 1)
+        self.eps_in, self.mu_in = c(eps_in), c(mu_in)
+        self.eps_out, self.mu_out = c(eps_out), c(mu_out)
+        self.Vf = internals['Vf']
+        self._has_input_layer = spec.has_input
+        self._has_output_layer = spec.has_output
+        self.Vi = internals.get('Vi')
+        self.Vo = internals.get('Vo')
+        self.S = S
+        self.source_direction = source_direction
+        self.layer_N = spec.n_layers
+        self.thickness = [float(t) for t in
+                          np.asarray(torch.as_tensor(thicknesses).detach()
+                                     .cpu()).reshape(-1)]
+        self.C, self.layers, self.eps_conv, self.mu_conv = [], [], [], []
+        if spec.n_layers:
+            if 'C' not in internals:
+                raise ValueError(
+                    'field reconstruction over internal layers needs '
+                    'solve_stack_pair(..., with_modes=True)')
+            self.C = internals['C']
+            self.layers = [LayerSolution(
+                S11=None, S21=None, G=None, D=None, kz=internals['kz'][i],
+                E_eigvec=internals['E'][i], H_eigvec=internals['H'][i])
+                for i in range(spec.n_layers)]
+            self.eps_conv = list(internals['conv'])
+            self.mu_conv = list(internals['mu_conv'])
+        # the functional solve densifies its homogeneous layers
+        self._layer_is_bd = [False] * spec.n_layers
+
+    def _out(self, z):
+        return z
 
 
 def _zphase(kz, omega, z):
