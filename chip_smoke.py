@@ -102,6 +102,10 @@ Phases (each prints its results; any failure exits non-zero):
  17. Example 6 (example6_topology_optimization.py: 700 x 300 nm cell,
      order (15, 8), grid 700 x 300, blur, projection, symmetrization) the
      same way (n = 1054); at 10 degrees the whole-density gradient cosine
+ 18. on each example's step-0 matrix: the whole Schur form against
+     complex128 eigenvalues, two sweeps of schur_ms against its plain
+     version from the same H, Q, and tri_vectors_blocked against its plain
+     version on the same T (phase 6's tolerances)
 The line before the last is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}.  Needs no JAX and no network.
 """
@@ -229,7 +233,7 @@ SU8_EPS = 1.6 ** 2
 CLASS_ORDERS = [[0, 0], [1, 0], [0, 1], [-1, 0], [1, 1], [2, 0]]
 # one layer through the class and the functional path on the large route
 CLASS_ORDER_L = (10, 10)
-# Examples 5 and 6 at their published configurations (phases 16, 17):
+# Examples 5 and 6 at their published configurations (phases 16-18):
 # ADAM steps through maximize_adam, the first of which the s/iter median
 # leaves out
 EX_STEPS = 3
@@ -878,6 +882,75 @@ def large_kernel_checks(torch, ek, dev):
           'schur_ms with a budget of 1 sweep: NaN eigenvalues')
 
 
+def two_sweeps_check(torch, sm, A, H, Q, cfg, rho, label):
+    """Two sweeps in place, kernels against the plain version, from the
+    same H, Q (A's Hessenberg form, rho its spectral radius).  Round-off
+    may flip a deflation decision, so the two are compared gauge-free: each
+    result is a unitary similarity of A in Hessenberg form, and the
+    eigenvalues both have deflated agree.  Returns ((kernel ms, plain ms),
+    the kernels' flops needed, the deflated eigenvalues' difference)."""
+    n = A.shape[-1]
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    Hk, Zk, Hp, Zp = H.clone(), Q.clone(), H.clone(), Q.clone()
+    ev[0].record()
+    sk = sm.run_sweeps(Hk, Zk, 2, **cfg)
+    ev[1].record()
+    ev[2].record()
+    sp = sm.run_sweeps(Hp, Zp, 2, plain=True, **cfg)
+    ev[3].record()
+    ev[3].synchronize()
+    ms2 = (ev[0].elapsed_time(ev[1]), ev[2].elapsed_time(ev[3]))
+    rk, ok_, _ = schur_quality(torch, A, Hk, Zk)
+    rp, op_, _ = schur_quality(torch, A, Hp, Zp)
+    nd = n - 1 - max(sk[0], sp[0])
+    dw = nearest_err(torch.diagonal(Hk)[n - nd:],
+                     torch.diagonal(Hp)[n - nd:]) if nd else 0.
+    print(f'  two sweeps at n = {n}: kernels {ms2[0]:.1f} ms, plain '
+          f'{ms2[1]:.1f} ms; (hi, sweeps, aed, skipped) kernels '
+          f'{sk[:4]} plain {sp[:4]}; residual {rk:.2e} / {rp:.2e}, '
+          f'unitarity {ok_:.2e} / {op_:.2e}; the {nd} eigenvalues both '
+          f'deflated differ by {dw:.2e}')
+    check(abs(sk[0] - sp[0]) <= 8 and sk[1] == sp[1] == 2,
+          f'{label}, two sweeps: kernels and plain deflate the same count '
+          '(within 8)')
+    # Q of the blocked reduction is unitary to ~1.5e-5 at n = 3362, so
+    # the kernels are held to the plain version's own figures
+    check(rk <= 2 * rp + 1e-6 and ok_ <= 2 * op_ + 1e-6 and rk <= 1e-5 and
+          bool((torch.tril(Hk, -2) == 0).all()) and dw <= 1e-4 * rho,
+          f'{label}, two sweeps: the kernels keep a unitary similarity in '
+          'Hessenberg form (residual 1e-5, unitarity on par with the plain '
+          'version) and deflate the plain version\'s eigenvalues (1e-4)')
+    return ms2, sk[5], dw
+
+
+def blocked_vectors_check(torch, vb, T, Y, label):
+    """tri_vectors_blocked's Y of T against its plain version: relative on
+    the separated columns (1e-4), and, on every column (a spectrum of
+    mirror-symmetric modes may have no separated column), the eigen-residual
+    max|T y - w y| / (max|T| max|y|) of each on par with the plain
+    version's.  Returns (the error, the plain version's ms, one run, the
+    kernel's and the plain version's eigen-residuals)."""
+    n = T.shape[-1]
+    got = []
+    plain_ms = once_ms(torch, lambda: got.append(
+        plain_blocked_vectors(torch, vb, T, vb.MAX_BLOCK)))
+    Yp = got[0]
+    w = torch.diagonal(T)
+    sep = separated(torch, w)
+    ey = float(((Y - Yp).abs().amax(0) * sep).max()) / float(Yp.abs().max())
+    tmax = float(T.abs().max())
+    rk, rp = (float(((T @ X - X * w).abs().amax(0)
+                     / X.abs().amax(0)).max()) / tmax for X in (Y, Yp))
+    print(f'  tri_vectors_blocked vs plain at n = {n}: {ey:.2e} relative on '
+          f'{int(sep.sum())} separated columns; eigen-residual on all '
+          f'{n} columns kernel {rk:.2e}, plain {rp:.2e}; plain '
+          f'{plain_ms:.1f} ms')
+    check(ey <= 1e-4, f'{label}: tri_vectors_blocked == plain <= 1e-4')
+    check(rk <= 2 * rp + 1e-6, f'{label}: tri_vectors_blocked eigen-residual '
+          'on par with the plain version\'s')
+    return ey, plain_ms, rk, rp
+
+
 def exact_eig_loss(torch, tp, eps, lams, order, inc):
     """fwd+grad of the float32 pipeline with its eig taken in complex128
     (an exact eig of the float32 A): the floor of any float32
@@ -947,51 +1020,9 @@ def order20_slice(torch, tp, ek, dev, out):
           'radius of the complex128 oracle')
     check(r1 <= 1e-4, 'order 20: eigen-residual after refinement <= 1e-4')
 
-    # two sweeps in place, kernels against the plain version, from the
-    # same H, Q.  Round-off may flip a deflation decision, so the two are
-    # compared gauge-free: each result is a unitary similarity of A in
-    # Hessenberg form, and the eigenvalues both have deflated agree
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-    Hk, Zk, Hp, Zp = H.clone(), Q.clone(), H.clone(), Q.clone()
-    ev[0].record()
-    sk = sm.run_sweeps(Hk, Zk, 2, **cfg)
-    ev[1].record()
-    ev[2].record()
-    sp = sm.run_sweeps(Hp, Zp, 2, plain=True, **cfg)
-    ev[3].record()
-    ev[3].synchronize()
-    out['ms2'] = (ev[0].elapsed_time(ev[1]), ev[2].elapsed_time(ev[3]))
-    out['need2'] = sk[5]
-    rk, ok_, _ = schur_quality(torch, A, Hk, Zk)
-    rp, op_, _ = schur_quality(torch, A, Hp, Zp)
-    nd = n - 1 - max(sk[0], sp[0])
-    dw = nearest_err(torch.diagonal(Hk)[n - nd:],
-                     torch.diagonal(Hp)[n - nd:]) if nd else 0.
-    print(f'  two sweeps at n = {n}: kernels {out["ms2"][0]:.1f} ms, plain '
-          f'{out["ms2"][1]:.1f} ms; (hi, sweeps, aed, skipped) kernels '
-          f'{sk[:4]} plain {sp[:4]}; residual {rk:.2e} / {rp:.2e}, '
-          f'unitarity {ok_:.2e} / {op_:.2e}; the {nd} eigenvalues both '
-          f'deflated differ by {dw:.2e}')
-    check(abs(sk[0] - sp[0]) <= 8 and sk[1] == sp[1] == 2,
-          'order 20, two sweeps: kernels and plain deflate the same count '
-          '(within 8)')
-    # Q of the blocked reduction is unitary to ~1.5e-5 at this size, so
-    # the kernels are held to the plain version's own figures
-    check(rk <= 2 * rp + 1e-6 and ok_ <= 2 * op_ + 1e-6 and rk <= 1e-5 and
-          bool((torch.tril(Hk, -2) == 0).all()) and dw <= 1e-4 * rho,
-          'order 20, two sweeps: the kernels keep a unitary similarity in '
-          'Hessenberg form (residual 1e-5, unitarity on par with the plain '
-          'version) and deflate the plain version\'s eigenvalues (1e-4)')
-    out['err_ms'] = dw
-    del Hk, Zk, Hp, Zp
-    # the blocked vectors against their plain version at this size
-    Yp = plain_blocked_vectors(torch, vb, T, vb.MAX_BLOCK)
-    sep = separated(torch, w)
-    ey = float(((Y - Yp).abs().amax(0) * sep).max()) / float(Yp.abs().max())
-    print(f'  tri_vectors_blocked vs plain at n = {n}: {ey:.2e} relative on '
-          f'{int(sep.sum())} separated columns')
-    check(ey <= 1e-4, 'order 20: tri_vectors_blocked == plain <= 1e-4')
-    out['err_vec'] = ey
+    out['ms2'], out['need2'], out['err_ms'] = two_sweeps_check(
+        torch, sm, A, H, Q, cfg, rho, 'order 20')
+    out['err_vec'] = blocked_vectors_check(torch, vb, T, Y, 'order 20')[0]
     out.update(A=A, H=H, Q=Q, T=T, Z=Z, need=st[5], eps=eps, n=n, cfg=cfg)
 
     # the slice itself
@@ -2243,7 +2274,8 @@ def example_phase(torch, tp, ek, smi, dev, name, out):
     name in a profiled step and no library eig; at 10 degrees the gradient
     against the oracle's; s/iter beside the same loop through
     torch.linalg.eig (complex64), device time, idle share, peak memory;
-    the large route's stages alone on the layer's matrix."""
+    the large route's stages alone on the layer's matrix, kept for
+    phase 18."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from torcwa_tpu_torch.ops import (eig_qr as eq, schur_ms as sm,
@@ -2289,8 +2321,9 @@ def example_phase(torch, tp, ek, smi, dev, name, out):
           and math.isfinite(f_end), f'{label}: every FoM and gradient finite')
     check(f_end > foms[0], f'{label}: FoM after step {EX_STEPS} '
           f'{f_end:.8g} above step 0\'s {foms[0]:.8g}')
-    check(abs(foms[0] - f_o) <= 1e-4, f'{label}: step 0 FoM vs complex128 '
-          f'oracle {abs(foms[0] - f_o):.2e} <= 1e-4')
+    rel_o = abs(foms[0] - f_o) / abs(f_o)
+    check(rel_o <= 1e-4, f'{label}: step 0 FoM vs complex128 oracle, '
+          f'relative {rel_o:.2e} <= 1e-4')
     check(all(launches[k] > 0 for k in LARGE) and
           not any(v for k, v in launches.items() if k not in LARGE),
           f'{label}: the large route\'s kernels launched, no other')
@@ -2384,7 +2417,43 @@ def example_phase(torch, tp, ek, smi, dev, name, out):
         n=n, s_iter=s_iter, s_iter_library=s_lib, device_ms=busy,
         idle=1 - busy / s_iter, peak_gb=peak, route_ms=t,
         launches_per_step={k: launches[k] / EX_STEPS for k in LARGE},
-        schur_ms_profile_ms=ms_k, schur_ms_bound=b_ms, vectors_bound=b_vec)
+        schur_ms_profile_ms=ms_k, schur_ms_bound=b_ms, vectors_bound=b_vec,
+        route=dict(A=A, H=H, Q=Q, T=T, Z=Z, st=st, cfg=cfg))
+
+
+def example_plain_checks(torch, exs):
+    """Phase 18: on each example's step-0 matrix (phases 16-17), schur_ms
+    and tri_vectors_blocked against their plain versions from the step's
+    own H, Q and T at phase 6's tolerances, and the whole Schur form
+    against complex128 LAPACK's eigenvalues, as phases 4 and 6 hold it."""
+    from torcwa_tpu_torch.ops import schur_ms as sm, vec_blocked as vb
+    for label, e in exs.items():
+        r = e.pop('route')
+        A, T, Z, st = r['A'], r['T'], r['Z'], r['st']
+        t0 = time.perf_counter()
+        w_ref = torch.linalg.eigvals(A.to(torch.complex128))
+        rho = float(w_ref.abs().max())
+        w = torch.diagonal(T).to(torch.complex128)
+        d = max(nearest_err(w, w_ref), nearest_err(w_ref, w)) / rho
+        res, orth, tri = schur_quality(torch, A, T, Z)
+        print(f'  {label}, schur_ms at n = {e["n"]}: eigenvalues vs complex128 '
+              f'{d:.2e} of the spectral radius; Schur residual {res:.2e}, '
+              f'unitarity {orth:.2e}')
+        check(st[0] == 0 and tri and d <= 1e-4 and res <= 1e-4 and
+              orth <= 1e-4, f'{label}: schur_ms converged, eigenvalues <= '
+              '1e-4, Schur residual and unitarity <= 1e-4')
+        ms2, _, err_ms = two_sweeps_check(torch, sm, A, r['H'], r['Q'],
+                                          r['cfg'], rho, label)
+        err_vec, vec_plain, vec_res, vec_res_p = blocked_vectors_check(
+            torch, vb, T, vb.tri_vectors_blocked(T), label)
+        print(f'  {label}: {time.perf_counter() - t0:.1f} s')
+        e['checks'] = {
+            'schur_ms': dict(max_abs_err=err_ms, two_sweeps_ms=ms2[0],
+                             two_sweeps_plain_ms=ms2[1],
+                             eig_err_vs_complex128=d),
+            'tri_vectors_blocked': dict(
+                max_abs_err=err_vec, plain_ms=vec_plain,
+                eigen_residual=vec_res, plain_eigen_residual=vec_res_p)}
 
 
 def main():
@@ -2715,6 +2784,9 @@ def run(torch):
         example_phase(torch, tp, ek, smi, dev, ex_name, exs)
         check(f32_precision_pinned(), 'the script\'s IEEE f32 setting holds '
               f'after {ex_name}')
+    phase('18. the large route\'s kernels against their plain versions on '
+          'the examples\' matrices (n = 882, 1054)')
+    example_plain_checks(torch, exs)
 
     if FAILURES:
         print(f'\n{len(FAILURES)} check(s) failed:', *FAILURES, sep='\n  ')
@@ -2737,7 +2809,8 @@ def run(torch):
     for k in LARGE:
         kernels[list(REPLACES).index(k)].update(examples={
             lab: dict(n=e['n'], launches_per_step=e['launches_per_step'][k],
-                      ms=e['route_ms'][k]) for lab, e in exs.items()})
+                      ms=e['route_ms'][k], **e['checks'][k])
+            for lab, e in exs.items()})
     kernels[list(REPLACES).index('schur_qr')].update(
         model_max_rel_err=qr_model_err)
     kernels[list(REPLACES).index('schur_ms')].update(

@@ -885,6 +885,24 @@ def test_functional_mixed_stack_on_the_card_matches_the_cpu(dev):
                 <= 1e-4
 
 
+def test_homogeneous_stack_of_python_scalars_solves_on_the_card(dev):
+    # a thin-film stack given only as Python numbers: no device asked, the
+    # solve runs on the card; its S-blocks within 1e-5 of the CPU's
+    import torcwa_tpu_torch as tp
+    spec = tp.StackSpec(order=(2, 2), L=(300., 300.), n_layers=2,
+                        has_input=True, has_output=True,
+                        homogeneous=(True, True))
+    kw = dict(eps_in=1.46 ** 2, eps_out=1., eps_scalars=[2.25, 3.1 + 0.1j])
+    Sg, ig = tp.solve_stack_pair(spec, 1 / 532., 0.1, 0., None,
+                                 [120., 75.], **kw)
+    assert Sg[0].device.type == 'cuda' and ig['kx'].device.type == 'cuda'
+    Sc, _ = tp.solve_stack_pair(spec, 1 / 532., 0.1, 0., None, [120., 75.],
+                                device='cpu', **kw)
+    for a, b in zip(Sg, Sc):
+        assert float((a.cpu() - b).abs().max()) <= 1e-5 * float(
+            b.abs().max())
+
+
 def test_maximize_adam_on_the_card_matches_the_cpu(dev):
     # two ADAM steps on |t_xx|^2 + |t_yy|^2 of a raster at order (3, 3),
     # float32, 10 deg: the card through the kernels against the CPU through

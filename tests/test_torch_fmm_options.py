@@ -4,8 +4,8 @@ The same numpy rasters, made from a seed, go through ``torcwa_tpu.fmm`` (on
 the CPU at float64, eig by host LAPACK) and ``torcwa_tpu_torch.fmm``
 (float64, ``eig_backend='torch'``): a stack that mixes patterned and
 homogeneous layers, a magnetic stack with magnetic claddings, the
-mode-coupling blocks of ``with_modes``, the P-inverse fallback, the stacked
-fold against the unrolled one, the ps S-parameters with evanescent orders,
+mode-coupling blocks of ``with_modes``, the P-inverse fallback, the fold
+named 'scan' against 'unroll', the ps S-parameters with evanescent orders,
 both sources, ``layer_smatrix_pair`` and the two diagnostics aliases; then
 the fields of a functional solve (``fields.fmm_field_adapter``) against the
 class's.  S-blocks agree to 1e-9 of their largest entry.
@@ -127,6 +127,31 @@ def test_mixed_stack_and_mode_coupling_blocks_match_jax():
             _close(a, b)
 
 
+def test_homogeneous_stack_without_tensors_follows_the_device_asked():
+    # two homogeneous layers given as Python numbers and a numpy array of
+    # eps (complex128: the solve's precision): with device 'cpu' the
+    # S-blocks match the JAX package; with no device and no tensor the
+    # solve goes to the CUDA card (so it raises without one)
+    spec = _spec(2, (True, True))
+    thick, eps_s = [120., 75.], np.array([2.25, 3.1 + 0.1j])
+    S, _ = tp.solve_stack_pair(spec, 1 / LAM, INC, AZI, None, thick,
+                               eps_in=EPS_SUB, eps_out=1.2, eps_scalars=eps_s,
+                               device='cpu')
+    e0 = jnp.zeros((0, GRID, GRID))
+    S_ref, _ = jf.solve_stack_pair(
+        spec, jnp.asarray(1 / LAM), jnp.asarray(INC), jnp.asarray(AZI),
+        (e0, e0), jnp.asarray(thick), eps_in=_jpair(EPS_SUB),
+        eps_out=_jpair(1.2), eps_scalars=_jpair(eps_s))
+    for got, want in zip(S, S_ref):
+        assert got.device.type == 'cpu'
+        _close(got, _np(want))
+    if not torch.cuda.is_available():
+        with pytest.raises((RuntimeError, AssertionError)):
+            tp.solve_stack_pair(spec, 1 / LAM, INC, AZI, None, thick,
+                                eps_in=EPS_SUB, eps_out=1.2,
+                                eps_scalars=eps_s)
+
+
 def test_magnetic_stack_and_claddings_match_jax():
     # two patterned layers with permeability rasters, magnetic lossy
     # claddings; the S-blocks, mu_conv, and the xy and ps S-parameters
@@ -184,9 +209,9 @@ def test_pinv_fallback_and_its_metrics_match_jax(threshold):
 
 
 def test_scan_fold_matches_unrolled_and_jax_on_eight_layers():
-    # eight layers (two homogeneous), modes carried: the stacked fold
-    # ('scan', and 'auto' at 8 layers) against the unrolled one, the
-    # S-blocks and every layer's C; the JAX package's scan for the S-blocks
+    # eight layers (two homogeneous), modes carried: 'scan' (and 'auto' at
+    # 8 layers) against 'unroll', the S-blocks and every layer's C; the JAX
+    # package's scan for the S-blocks
     hom = (False, False, True, False, False, True, False, False)
     spec = _spec(8, hom, order=(1, 1))
     eps = _rasters(6, 41)

@@ -241,3 +241,87 @@ def test_example_runs_two_steps_on_the_cpu_and_resumes(name, prefix, grid,
     assert len(hist) == 3 and 'resumed' in capsys.readouterr().out
     st = tu.load_state(ckpt, device='cpu')
     assert int(st['step']) == 3
+
+
+def _twin(name):
+    spec = importlib.util.spec_from_file_location(
+        f'jax_{name}', os.path.join(ROOT, 'examples', f'{name}.py'))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+class _Captured(Exception):
+    pass
+
+
+def _twin_loop(twin, monkeypatch):
+    """The JAX twin's maximize_adam arguments, taken from its main()."""
+    seen = {}
+
+    def capture(fom, params, n_iter, **kw):
+        seen.update(kw, params=params)
+        raise _Captured
+
+    monkeypatch.setattr(jo, 'maximize_adam', capture)
+    with pytest.raises(_Captured):
+        twin.main()
+    return seen
+
+
+@pytest.mark.parametrize('name,prefix', [
+    ('example5_shape_optimization', 'EX5'),
+    ('example6_topology_optimization', 'EX6')])
+def test_example_matches_its_jax_twin(name, prefix, tmp_path, monkeypatch):
+    # each example's FoM against its JAX twin's on the same inputs at
+    # order (2, 2), float64 (the twin's precision and grid set to match),
+    # eig by torch.linalg.eig and host LAPACK: within 1e-9 relative; then
+    # the loop's settings the twin's main() hands to maximize_adam
+    order, grid = (2, 2), ((60, 60) if prefix == 'EX5' else (70, 30))
+    monkeypatch.setenv(f'{prefix}_CKPT', str(tmp_path / 'none.npz'))
+    twin, port = _twin(name), _example(name)
+    for k, v in (('ORDER', order), ('NX', grid[0]), ('NY', grid[1]),
+                 ('RDTYPE', jnp.float64),
+                 ('SI_RE', jnp.asarray(twin._si.real, jnp.float64)),
+                 ('SI_IM', jnp.asarray(twin._si.imag, jnp.float64)),
+                 ('SPEC', jf.StackSpec(order=order, L=twin.L, n_layers=1,
+                                       has_input=True))):
+        monkeypatch.setattr(twin, k, v)
+    fom = port.make_fom(order, grid, 'cpu', torch.float64, 'torch')
+    rng = np.random.default_rng(7)
+    if prefix == 'EX5':
+        cases = [(np.array([100., 50.]),), (np.array([173.4, 211.9]),)]
+    else:
+        BX, BY = twin._blur_matrices()
+        monkeypatch.setattr(twin, 'BX', BX)
+        monkeypatch.setattr(twin, 'BY', BY)
+        for a, b in zip(port.blur_matrices(grid, 'cpu', torch.float64),
+                        (BX, BY)):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=0,
+                                       atol=1e-15)
+        cases = [(rng.random(grid), 1.), (rng.random(grid), 37.5)]
+    for args in cases:
+        want = float(twin.fom(*(jnp.asarray(a) for a in args)))
+        got = float(fom(*(_t(a) if isinstance(a, np.ndarray) else a
+                          for a in args)))
+        assert abs(got - want) <= 1e-9 * abs(want), (got, want)
+
+    seen, kw = _twin_loop(twin, monkeypatch), port.loop_kwargs()
+    for k in ('lower', 'upper', 'eps_in_sqrt'):
+        assert kw.get(k) == seen[k], k
+    steps = range(port.ITER_MAX)
+    np.testing.assert_array_equal(
+        [kw['lr_schedule'](s) for s in steps],
+        [float(seen['lr_schedule'](s)) for s in steps])
+    if prefix == 'EX5':
+        np.testing.assert_array_equal(
+            port.initial_params(grid, 'cpu').numpy(),
+            np.asarray(seen['params']))
+    else:
+        np.testing.assert_array_equal(
+            [kw['fom_args_schedule'](s)[0] for s in steps],
+            [float(seen['fom_args_schedule'](s)[0]) for s in steps])
+        rho = rng.random(grid)
+        np.testing.assert_array_equal(
+            kw['post_update'](_t(rho), 3).numpy(),
+            np.asarray(seen['post_update'](jnp.asarray(rho), 3)))

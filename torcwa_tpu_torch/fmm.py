@@ -3,8 +3,8 @@
 Counterpart of ``torcwa_tpu/fmm.py``: patterned layers (mu = 1 or a
 permeability raster), homogeneous layers in O(N) block-diagonal algebra,
 free-space-referenced layer S-matrices, an input and an output cladding,
-the Redheffer fold (unrolled, or with the layers' mode-coupling blocks
-carried as one stack), the reference's P-inverse fallback, mode
+the Redheffer fold (one loop, carrying the layers' mode-coupling blocks
+where asked), the reference's P-inverse fallback, mode
 propagation for the fields, the xy and ps S-parameters and the two
 sources.  Conventions are the upstream torcwa's: Lorentz-Heaviside units,
 exp(-j w t), Laurent rule, Im(kz) >= 0 per layer type.
@@ -196,28 +196,18 @@ def redheffer_pair(Sm, Sn):
     return redheffer_product(Sm, Sn)[0]
 
 
-def _fold(Ss, Cs, Sin, Sout, stacked):
+def _fold(Ss, Cs, Sin, Sout):
     """Global S-matrix of the layers' [S11, S21, S12, S22] (stack order)
     and the claddings' by Redheffer star products (reference
     rcwa.py:173-211, 1283-1306), carrying each layer's (Cf, Cb) where Cs
-    lists them.
-
-    ``stacked`` is the port's counterpart of the JAX package's lax.scan
-    fold: the (Cf, Cb) of the layers folded so far are one (i, ..., 4N, 2N)
-    stack, and each star product updates the stack with one batched
-    product, so the launches grow with the layers and not with their
-    square.  Both forms fold the same products in the same order."""
+    lists them.  This loop is the port's counterpart of both of the JAX
+    package's folds (unrolled and lax.scan): each folds the same products
+    in the same order."""
     S = Ss[0]
-    C = None
-    if Cs is not None:
-        C = tuple(c[None] for c in Cs[0]) if stacked else list(Cs[:1])
+    C = None if Cs is None else list(Cs[:1])
     for i in range(1, len(Ss)):
         S_new, t1, t2 = redheffer_product(S, Ss[i])
-        if C is not None and stacked:
-            (cf, cb), (cf_i, cb_i) = redheffer_update_modes(
-                [C], [Cs[i]], S, Ss[i], t1, t2)
-            C = (torch.cat([cf, cf_i[None]]), torch.cat([cb, cb_i[None]]))
-        elif C is not None:
+        if C is not None:
             C = redheffer_update_modes(C, [Cs[i]], S, Ss[i], t1, t2)
         S = S_new
     for Sc, outer in ((Sin, True), (Sout, False)):
@@ -226,12 +216,8 @@ def _fold(Ss, Cs, Sin, Sout, stacked):
         Sm, Sn = (Sc, S) if outer else (S, Sc)
         S, t1, t2 = redheffer_product(Sm, Sn)
         if C is not None:
-            Cl = [C] if stacked else C
-            C = redheffer_update_modes(*(([], Cl) if outer else (Cl, [])),
+            C = redheffer_update_modes(*(([], C) if outer else (C, [])),
                                        Sm, Sn, t1, t2)
-            C = C[0] if stacked else C
-    if stacked and C is not None:
-        C = [(C[0][i], C[1][i]) for i in range(len(Ss))]
     return S, C
 
 
@@ -241,7 +227,7 @@ def solve_stack_pair(spec, freq, inc_ang, azi_ang, eps_grids, thicknesses,
                      eig_backend='kernels', mu_grids=None, eps_scalars=None,
                      mu_scalars=None, mu_in=None, mu_out=None,
                      with_modes=False, avoid_pinv_instability=False,
-                     max_pinv_instability=0.005, fold='auto'):
+                     max_pinv_instability=0.005, fold='auto', device=None):
     """Global S-matrix of a layer stack.
 
     Args:
@@ -253,9 +239,9 @@ def solve_stack_pair(spec, freq, inc_ang, azi_ang, eps_grids, thicknesses,
       inc_ang, azi_ang: real scalars (radians).
       eps_grids: [n_patterned, nx, ny] permittivity rasters (real or
         complex) of the patterned layers, in stack order; with them the
-        device and precision of the solve.  With no patterned layer it may
-        be (0, nx, ny) or None, and then eps_scalars or the claddings give
-        them; with no layer at all the S-matrix is the claddings' alone.
+        precision of the solve.  With no patterned layer it may be
+        (0, nx, ny) or None, and then eps_scalars or the claddings give
+        it; with no layer at all the S-matrix is the claddings' alone.
       thicknesses: [n_layers] real (all layers).
       eps_in / eps_out: complex cladding permittivities when
         spec.has_input / spec.has_output.
@@ -272,9 +258,12 @@ def solve_stack_pair(spec, freq, inc_ang, azi_ang, eps_grids, thicknesses,
         the threshold (a near-singular P at a Wood anomaly) H = Q E Kz^-1.
         The detached per-layer (Pinv, Qinv) metrics are
         ``internals['pinv_instability']``.
-      fold: 'unroll', 'scan' (the mode-coupling blocks as one stack,
-        ``_fold``) or 'auto' ('scan' from 8 layers on, as in the JAX
-        package).  Both give the same S-matrix.
+      fold: 'unroll', 'scan' or 'auto', the JAX package's choice of
+        fold; each names the one loop of ``_fold``, which folds the same
+        products in the same order as either.
+      device: where the solve runs; None follows the first tensor among
+        the permittivities (then freq and thicknesses), else the CUDA card,
+        so a stack given only as Python numbers solves on the card.
 
     Returns ([S11, S21, S12, S22], internals), each block (B, 2N, 2N).
     Forward and backward run in IEEE f32 (``_constants.pinned``).
@@ -289,13 +278,15 @@ def solve_stack_pair(spec, freq, inc_ang, azi_ang, eps_grids, thicknesses,
     pat = [i for i, h in enumerate(hmask) if not h]
     hom = [i for i, h in enumerate(hmask) if h]
 
-    first = next(v for v in (eps_grids, eps_scalars,
-                             eps_in if spec.has_input else None, eps_out)
-                 if v is not None)
-    first = torch.as_tensor(first)
+    given = (eps_grids, eps_scalars, eps_in if spec.has_input else None,
+             eps_out)
+    first = torch.as_tensor(next(v for v in given if v is not None))
     cdt = first.dtype if first.is_complex() else complex_dtype_of(first.dtype)
     rdt = real_dtype_of(cdt)
-    dev = first.device
+    if device is None:
+        device = next((v.device for v in given + (freq, thicknesses)
+                       if isinstance(v, torch.Tensor)), 'cuda')
+    dev = torch.device(device)
     order, L = spec.order, spec.L
     freq = torch.as_tensor(freq, dtype=rdt, device=dev)
     scalar = freq.dim() == 0
@@ -390,9 +381,7 @@ def solve_stack_pair(spec, freq, inc_ang, azi_ang, eps_grids, thicknesses,
         Vo = vmat(kx, ky, kz_conj_branch(eps_out * mu_out, kx, ky))
         internals['Vo'] = Vo
         Sout = [bdp_dense(b) for b in interface_smatrix_out(Vf, Vo)]
-    stacked = spec.n_layers > 1 and (
-        fold == 'scan' or (fold == 'auto' and spec.n_layers >= 8))
-    S, C = _fold(Ss, Cs, Sin, Sout, stacked)
+    S, C = _fold(Ss, Cs, Sin, Sout)
     if with_modes:
         internals['C'] = C
     if scalar:
