@@ -10,7 +10,10 @@ orders 6 to 8 and inside one order-(7, 7) solve), the order-6 and order-7
 class API (rcwa, with the a-Si:H table of materials), and the two
 optimisation examples (examples/torch/, Examples 5 and 6 at their published
 orders, one matrix at n = 882 and 1054 through the large route) for a few
-ADAM steps through optim.maximize_adam.
+ADAM steps through optim.maximize_adam, and the sweep path: Examples 0-4
+(examples/torch/; Example 1 at order 15 and Example 3 at order 20 through
+the large route, one raster a lane in a batched solve) and the sweeps split
+over devices (parallel).
 
     python3 chip_smoke.py
 
@@ -106,12 +109,39 @@ Phases (each prints its results; any failure exits non-zero):
      complex128 eigenvalues, two sweeps of schur_ms against its plain
      version from the same H, Q, and tri_vectors_blocked against its plain
      version on the same T (phase 6's tolerances)
+ 19. Examples 0, 2 and 4 (examples/torch/, the class API): Example 0's
+     reflectances against Fresnel (0-80 degrees); Example 2 at order (5, 5)
+     (n = 242, the small route): |E|^2 on the xz plane and the mid-layer xy
+     cut against the same class at complex128 through torch.linalg.eig, the
+     twin's envelope; Example 4 at order (4, 4): the float64 broadened
+     dT/dR (torch.linalg.eig) against the finite difference and against
+     tests/golden/example4.npz, and the float32 dT/dR through the kernels
+     against the float64 one; the small route's kernels against their plain
+     versions at n = 242 and 162
+ 20. Example 1, one raster a wavelength in one batched solve: order (4, 4)
+     at 31 wavelengths (B = 31, n = 162) and order (15, 15) at 400, 550
+     and 700 nm (n = 1922, the large route), |t_xx|^2 against the
+     complex128 oracle, s/solve through the kernels and through
+     torch.linalg.eig; parallel.shard_sweep and sweep_and_grad at order 4
+     on a mesh of the card and of the card twice (5 points: the padding
+     path) against the direct batched call; the large route's kernels
+     against their plain versions at n = 1922 (as phase 18)
+ 21. Example 1-1 (three patterned layers) at orders 0, 3, 6, 9, 12 (n = 2
+     to 1250, both routes): TRR + TLR + TRL + TLL <= 1 + 1e-4, order 12
+     against the complex128 oracle; Example 3 at order (20, 20) at two
+     points of the 11 x 11 grid in one batch, its eig stages timed with
+     utils.StageTimer, mfu_report beside measured_gemm_peak(2048), one point
+     against the oracle; the small route's kernels against their plain
+     versions at n = 2 and 98 (the large route's at n = 722 and 1250:
+     qr_compare.py --stage gates)
 The line before the last is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}.  Needs no JAX and no network.
 """
 
+import contextlib
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -969,6 +999,31 @@ def exact_eig_loss(torch, tp, eps, lams, order, inc):
         eig_mod._forward = keep
 
 
+@contextlib.contextmanager
+def timed_eig_stages(torch, stages, whole):
+    """Inside the scope each stage of the two eig routes runs through
+    ``stages.wrap`` under its name ('hess': hessenberg and
+    hessenberg_blocked, 'qr': SMALL_SCHUR and schur_ms, 'vec': tri_vectors
+    and tri_vectors_blocked, 'refine': one _refine step), and the whole
+    eig forward (either backend) through ``whole.wrap`` as 'eig'; each
+    wrap waits for the card before it stops its clock."""
+    from torcwa_tpu_torch.ops import eig as eig_mod, eig_qr as eq
+    names = {'hessenberg': 'hess', 'hessenberg_blocked': 'hess',
+             'SMALL_SCHUR': 'qr', 'schur_ms': 'qr', 'tri_vectors': 'vec',
+             'tri_vectors_blocked': 'vec', '_refine': 'refine'}
+    keep = {k: getattr(eq, k) for k in names}
+    keep_fwd = eig_mod._forward
+    for k, v in names.items():
+        setattr(eq, k, stages.wrap(v, keep[k]))
+    eig_mod._forward = whole.wrap('eig', keep_fwd)
+    try:
+        yield
+    finally:
+        for k, v in keep.items():
+            setattr(eq, k, v)
+        eig_mod._forward = keep_fwd
+
+
 def order20_slice(torch, tp, ek, dev, out):
     """Phase 6: the order-(20, 20) solve through the large-n route."""
     from torcwa_tpu_torch.ops import (eig_qr as eq, schur_ms as sm,
@@ -1471,9 +1526,9 @@ def alt_path(torch, tp, ek, dev, A6, H6, Q6, eps32, out):
           f'{cos_k:.6f} >= 0.99')
 
 
-def qr_window_check(torch, ek, dev):
-    """schur_qr after QR_MODEL_BUDGET sweeps on a random (QR_MODEL_LANES,
-    338) batch (n = 338 is no multiple of the chase window's step, 30)
+def qr_window_check(torch, ek, dev, n=338, lanes=QR_MODEL_LANES):
+    """schur_qr after QR_MODEL_BUDGET sweeps on a random (lanes, n) batch
+    (n = 338, phase 3's, is no multiple of the chase window's step, 30)
     against the plain model of its windowed schedule
     (``eig_kernels._single_shift_sweeps(..., window=WINDOW)``) on the same
     H, Q.  Each must hold a unitary Hessenberg similarity with T
@@ -1483,7 +1538,7 @@ def qr_window_check(torch, ek, dev):
     other contractions, as phase 14 holds the batched stages after one
     sweep); the stats equal (nothing deflates in two sweeps of a random
     matrix).  Returns max|T - T_model| / ||A||_2."""
-    n, B, w = 338, QR_MODEL_LANES, ek.WINDOW
+    B, w = lanes, ek.WINDOW
     A = torch.stack([rand_c64(torch, n, 200 + b, dev) for b in range(B)])
     H, Q = ek.hessenberg(A)
     w_ref = torch.linalg.eigvals(A.to(torch.complex128))
@@ -1508,11 +1563,12 @@ def qr_window_check(torch, ek, dev):
           f'{pk[1]:.2e}, {pk[2]:.2e}) model ({pp[0]:.2e}, {pp[1]:.2e}, '
           f'{pp[2]:.2e}); model {secs:.1f} s')
     check(max(pk[:3]) <= 1e-5 and max(pp[:3]) <= 1e-5,
-          f'schur_qr, {QR_MODEL_BUDGET} sweeps: kernel and model each keep a '
-          'unitary Hessenberg similarity (1e-5)')
+          f'schur_qr at n = {n}, {QR_MODEL_BUDGET} sweeps: kernel and model '
+          'each keep a unitary Hessenberg similarity (1e-5)')
     check(dT <= 1e-4 * a2 and dZ <= 1e-4 and same,
-          f'schur_qr == the model of its schedule after {QR_MODEL_BUDGET} '
-          'sweeps: T within 1e-4 ||A||_2, Z within 1e-4, the same stats')
+          f'schur_qr at n = {n} == the model of its schedule after '
+          f'{QR_MODEL_BUDGET} sweeps: T within 1e-4 ||A||_2, Z within 1e-4, '
+          'the same stats')
     return dT / a2
 
 
@@ -2239,11 +2295,12 @@ def adam_run(torch, tp, fom, p0, kw, steps, state=None):
     return params, opt, hist, [a.elapsed_time(b) for a, b in zip(ev, ev[1:])]
 
 
-def layer_matrix(torch, tp, spec, eps, lam):
-    """A = P Q of one raster layer at normal incidence, (n, n)."""
+def layer_matrix(torch, tp, spec, eps, lam, inc=0., n_ref=1.):
+    """A = P Q of one float32 raster layer at `inc` radians (azimuth 0) in
+    a cladding of index n_ref, (n, n)."""
     from torcwa_tpu_torch.ops.fourier import material_conv
     freq = torch.tensor([1. / lam], dtype=torch.float32, device=eps.device)
-    kx, ky = tp.kvectors_real(freq, 0., 0., 1., spec.order, spec.L,
+    kx, ky = tp.kvectors_real(freq, inc, 0., n_ref, spec.order, spec.L,
                               torch.float32)
     P, Q = tp.pq_pair(material_conv(eps, spec.order), kx, ky)
     return (P @ Q)[0].contiguous()
@@ -2454,6 +2511,379 @@ def example_plain_checks(torch, exs):
             'tri_vectors_blocked': dict(
                 max_abs_err=err_vec, plain_ms=vec_plain,
                 eigen_residual=vec_res, plain_eigen_residual=vec_res_p)}
+
+
+def small_route_hold(torch, ek, A, label):
+    """A new size of the small route (phases 19-21) against the plain
+    versions, on a matrix of the path: hessenberg's reconstruction beside
+    its plain version's (1e-5 ||A||_F; Q unitary within 1e-5); the whole
+    schur_qr against complex128 eigenvalues (1e-4 of the spectral radius)
+    with its Schur residual (1e-5); tri_vectors against its plain version
+    on the same T (1e-4 relative on separated columns, the eigen-residual
+    on par); and, from n = 8, schur_qr after QR_MODEL_BUDGET sweeps of a
+    random batch of this n against the plain model of its schedule
+    (qr_window_check).  Returns the errors."""
+    from torcwa_tpu_torch.ops.eig_kernels import (hessenberg_plain,
+                                                  tri_vectors_plain)
+    A = A[None] if A.dim() == 2 else A
+    n = A.shape[-1]
+    t0 = time.perf_counter()
+    afro = torch.linalg.matrix_norm(A)
+    eye = torch.eye(n, dtype=A.dtype, device=A.device)
+    H, Q = ek.hessenberg(A)
+    Hp, Qp = hessenberg_plain(A)
+    drec = float(((Q @ H @ Q.mH - Qp @ Hp @ Qp.mH).abs().amax((-2, -1))
+                  / afro).max())
+    orth = float((Q.mH @ Q - eye).abs().max())
+    T, Z, (hi, _, _) = ek.schur_qr(H, Q, return_stats=True)
+    w = torch.diagonal(T, dim1=-2, dim2=-1)
+    w_ref = torch.linalg.eigvals(A.to(torch.complex128))
+    ew = nearest_err(w.to(torch.complex128), w_ref) / float(w_ref.abs().max())
+    rz = float((torch.linalg.matrix_norm(Z @ T @ Z.mH - A) / afro).max())
+    Y, Yp = ek.tri_vectors(T), tri_vectors_plain(T)
+    V, Vp = (Z @ X for X in (Y, Yp))
+    V, Vp = (X / torch.linalg.vector_norm(X, dim=-2, keepdim=True)
+             for X in (V, Vp))
+    gap = (w[..., :, None] - w[..., None, :]).abs() + \
+        torch.eye(n, device=w.device) * 1e30
+    sep = gap.amin(-1) > 1e-3 * w.abs().amax(-1, keepdim=True)
+    ev = float(((V - Vp).abs().amax(-2) * sep).max()) if n > 1 else 0.
+    r_k, r_p = (float(((A @ X - X * w[..., None, :]).abs().amax((-2, -1))
+                       / A.abs().amax((-2, -1))).max()) for X in (V, Vp))
+    print(f'  {label}, small route at n = {n}: hessenberg reconstruction vs '
+          f'plain {drec:.2e} ||A||_F, Q unitary {orth:.2e}; schur_qr '
+          f'eigenvalues vs complex128 {ew:.2e}, residual {rz:.2e}; '
+          f'tri_vectors vs plain {ev:.2e} on {int(sep.sum())} separated '
+          f'columns, eigen-residual {r_k:.2e} (plain {r_p:.2e})')
+    check(drec <= 1e-5 and orth <= 1e-5, f'{label}: hessenberg == plain '
+          'within 1e-5 ||A||_F, Q unitary within 1e-5')
+    check(bool((hi == 0).all()) and ew <= 1e-4 and rz <= 1e-5,
+          f'{label}: schur_qr converged, eigenvalues within 1e-4, residual '
+          '<= 1e-5')
+    check(ev <= 1e-4 and r_k <= 10 * r_p + 1e-6, f'{label}: tri_vectors == '
+          'plain within 1e-4 on separated columns, eigen-residual on par')
+    out = dict(n=n, hessenberg=drec, schur_qr=ew, tri_vectors=ev)
+    if n >= 8:
+        out['schur_qr_model'] = qr_window_check(torch, ek, A.device, n, 2)
+    print(f'  {label}: {time.perf_counter() - t0:.1f} s')
+    return out
+
+
+def large_route_hold(torch, A, label):
+    """A new size of the large route (phases 20-21) against the plain
+    versions, as phase 18 holds the examples' matrices: two schur_ms
+    sweeps kernel and plain from the lane's own H, Q; tri_vectors_blocked
+    on its own T; the whole Schur form against complex128 eigenvalues.
+    Returns the errors."""
+    from torcwa_tpu_torch.ops import (eig_qr as eq, schur_ms as sm,
+                                      vec_blocked as vb)
+    from torcwa_tpu_torch.ops.hess_blocked import hessenberg_blocked
+    t0 = time.perf_counter()
+    n = A.shape[-1]
+    cfg = dict(m=eq.large_shifts(n), defl_mult=eq.LARGE_DEFL_MULT)
+    H, Q = hessenberg_blocked(A)
+    T, Z, st = sm.schur_ms(H, Q, return_stats=True, **cfg)
+    w_ref = torch.linalg.eigvals(A.to(torch.complex128))
+    rho = float(w_ref.abs().max())
+    d = set_dist(torch.diagonal(T).to(torch.complex128), w_ref) / rho
+    res, orth, tri = schur_quality(torch, A, T, Z)
+    print(f'  {label}, schur_ms at n = {n}: eigenvalues vs complex128 '
+          f'{d:.2e} of the spectral radius; Schur residual {res:.2e}, '
+          f'unitarity {orth:.2e}')
+    check(st[0] == 0 and tri and d <= 1e-4 and res <= 1e-4 and orth <= 1e-4,
+          f'{label}: schur_ms converged, eigenvalues <= 1e-4, Schur residual '
+          'and unitarity <= 1e-4')
+    ms2, need2, err_ms = two_sweeps_check(torch, sm, A, H, Q, cfg, rho,
+                                          label)
+    err_vec, vec_plain, _, _ = blocked_vectors_check(
+        torch, vb, T, vb.tri_vectors_blocked(T), label)
+    # one run each, the kernels warm from the path: the whole Schur form,
+    # the blocked vectors and the library's whole eig on the same matrix,
+    # beside the bounds of phases 7 and 16-17
+    t = {'schur_ms': once_ms(torch, lambda: sm.schur_ms(H, Q, **cfg)),
+         'tri_vectors_blocked': once_ms(torch,
+                                        lambda: vb.tri_vectors_blocked(T)),
+         'torch.linalg.eig': once_ms(torch, lambda: torch.linalg.eig(A))}
+    b = {'schur_ms': bound(4 * n * n * C64, st[5]),
+         'two_sweeps': bound(4 * n * n * C64, need2),
+         'tri_vectors_blocked': bound(2 * n * n * C64, n ** 3 / 6 * 8)}
+    print(f'  {label}: schur_ms {t["schur_ms"]:.1f} ms (bound '
+          f'{b["schur_ms"][0]:.4f} by {b["schur_ms"][1]}; two sweeps '
+          f'{ms2[0]:.1f}, plain {ms2[1]:.1f}, bound {b["two_sweeps"][0]:.4f}'
+          f'), tri_vectors_blocked {t["tri_vectors_blocked"]:.2f} ms (bound '
+          f'{b["tri_vectors_blocked"][0]:.4f} by '
+          f'{b["tri_vectors_blocked"][1]}, plain {vec_plain:.1f}), '
+          f'torch.linalg.eig {t["torch.linalg.eig"]:.1f} ms; '
+          f'{time.perf_counter() - t0:.1f} s')
+    return dict(n=n, schur_ms=err_ms, tri_vectors_blocked=err_vec,
+                ms=t, bound_ms={k: v[0] for k, v in b.items()},
+                schur_ms_two_sweeps_ms=ms2, vectors_plain_ms=vec_plain,
+                eig_err_vs_complex128=d)
+
+
+def launched(torch, ek, label, kernels, out):
+    """Read the launch counts after a path; check that the route's
+    kernels ran and no other eig kernel did; keep them under `label`."""
+    torch.cuda.synchronize()
+    got = {k: v for k, v in ek.LAUNCHES.items() if v}
+    print(f'  launches, {label}: {got}')
+    check(all(got.get(k) for k in kernels) and set(got) <= set(kernels),
+          f'{label}: {", ".join(kernels)} launched, no other eig kernel')
+    out.setdefault('launches', {})[label] = got
+    return got
+
+
+def class_examples_phase(torch, tp, ek, smi, dev, out):
+    """Phase 19: Examples 0, 2 and 4 (examples/torch/) through the class
+    API on the card."""
+    t0 = time.perf_counter()
+    ex0 = load_example('example0_fresnel')
+    worst = 0.
+    for ang in range(0, 90, 10):
+        got, want = ex0.rcwa_reflection(ang, dev), ex0.fresnel(ang)
+        worst = max(worst, *(abs(a - b) / max(2e-3, 0.01 * b)
+                             for a, b in zip(got, want)))
+    print(f'  example0: R_TM, R_TE at 0-80 deg, the largest error '
+          f'{worst:.3f} of the tolerance max(2e-3, 1%)')
+    check(worst < 1, 'example0: R_TM and R_TE match Fresnel within '
+          'max(2e-3, 1%), 0-80 deg')
+
+    ex2 = load_example('example2_fields')
+    n2 = 2 * (2 * ex2.ORDER[0] + 1) * (2 * ex2.ORDER[1] + 1)
+    ek.reset_launch_counts()
+    sim = ex2.simulate(ex2.ORDER, dev)
+    maps = ex2.field_maps(sim)
+    launched(torch, ek, f'example2 (n = {n2})', SMALL, out)
+    ang = ex2.diffraction_angles(sim)
+    sim_o = ex2.simulate(ex2.ORDER, dev, torch.complex128, 'torch')
+    maps_o = ex2.field_maps(sim_o)
+    ang_o = ex2.diffraction_angles(sim_o)
+    errs = [float((a.double() - b).abs().max() / b.abs().max())
+            for a, b in zip(maps, maps_o)]
+    dang = max(float(np.abs(a - b).max()) for a, b in zip(ang, ang_o))
+    print(f'  example2: order {ex2.ORDER}, |E|^2 on the xz plane and the xy '
+          f'cut vs the complex128 torch.linalg.eig class: {errs[0]:.2e}, '
+          f'{errs[1]:.2e} of max|E|^2 (max {float(maps[0].max()):.4f}, '
+          f'{float(maps[1].max()):.4f}); diffraction angles within '
+          f'{dang:.1e} deg')
+    check(max(errs) <= 1e-4, 'example2: |E|^2 on both planes within 1e-4 '
+          'of max|E|^2 of the complex128 oracle')
+    try:
+        ex2.check_envelope(*maps)
+        envelope = True
+    except AssertionError as e:
+        envelope = str(e)
+    check(envelope is True, f'example2: the twin\'s envelope ({envelope})')
+    g = tp.geometry(Lx=ex2.L[0], Ly=ex2.L[1], nx=ex2.GRID, ny=ex2.GRID,
+                    edge_sharpness=1000., device=dev)
+    sq = g.square(W=300., Cx=ex2.L[0] / 2., Cy=ex2.L[1] / 2.)
+    spec = tp.StackSpec(order=ex2.ORDER, L=tuple(ex2.L), n_layers=1)
+    A2 = layer_matrix(torch, tp, spec, sq * 3.5 ** 2 + (1. - sq), 600.,
+                      math.radians(20.), 1.46)
+    del sim, sim_o, maps_o
+    t1 = time.perf_counter()
+
+    ex4 = load_example('example4_gradient_check')
+    n4 = 2 * (2 * ex4.ORDER[0] + 1) * (2 * ex4.ORDER[1] + 1)
+    ek.reset_launch_counts()
+    rows = ex4.gradient_rows(ex4.ORDER, dev)
+    launched(torch, ek, f'example4 float32 (n = {n4})', SMALL, out)
+    fd_ok = all(np.isclose(r[4], r[2], rtol=5e-2, atol=2e-5) for r in rows)
+    f32_ok = all(np.isclose(r[6], r[4], rtol=5e-2, atol=2e-5) for r in rows)
+    for R, T, fd, exact, broad, T32, broad32 in rows:
+        print(f'  example4 R = {R}: T {T:.6f} (float32 kernels {T32:.6f}); '
+              f'dT/dR fd {fd:.4e}, exact {exact:.4e}, broadened {broad:.4e}, '
+              f'float32 kernels {broad32:.4e}')
+    check(fd_ok, 'example4: float64 broadened dT/dR within rtol 5e-2, atol '
+          '2e-5 of the finite difference')
+    check(f32_ok, 'example4: float32 dT/dR through the kernels within rtol '
+          '5e-2, atol 2e-5 of the float64 value')
+    gold = np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                'tests', 'golden', 'example4.npz'))
+    got = [ex4.dT_dR(float(R), True, 1e-10, device=dev, grid=400)[1]
+           for R in gold['R']]
+    rel = float(np.max(np.abs(np.array(got) - gold['dTdR_broad'])
+                       / np.abs(gold['dTdR_broad'])))
+    print(f'  example4 at the golden\'s R {gold["R"].tolist()} (grid 400): '
+          f'broadened dT/dR {got}, golden {gold["dTdR_broad"].tolist()}, '
+          f'relative {rel:.2e}')
+    check(rel <= 1e-3, 'example4: broadened dT/dR within 1e-3 of '
+          'tests/golden/example4.npz')
+    g4 = tp.geometry(Lx=ex4.L[0], Ly=ex4.L[1], nx=ex4.GRID, ny=ex4.GRID,
+                     edge_sharpness=500., device=dev)
+    cyl = g4.circle(90., ex4.L[0] / 2., ex4.L[1] / 2.)
+    A4 = layer_matrix(torch, tp, tp.StackSpec(ex4.ORDER, tuple(ex4.L), 1),
+                      cyl * 2.0709 ** 2 + (1. - cyl), 473.)
+    t2 = time.perf_counter()
+    out['holds'] = [small_route_hold(torch, ek, A2, f'example2 n = {n2}'),
+                    small_route_hold(torch, ek, A4, f'example4 n = {n4}')]
+    print(f'  seconds: example 0 and 2 {t1 - t0:.1f}, example 4 '
+          f'{t2 - t1:.1f}, holds {time.perf_counter() - t2:.1f} [{smi}]')
+
+
+def sweep_phase(torch, tp, ek, smi, dev, out):
+    """Phase 20: Example 1 (examples/torch/example1_wavelength_sweep.py),
+    one raster a wavelength: order 4 at 31 wavelengths (the small route,
+    B = 31) and order 15 at 3 (n = 1922, the large route), each against
+    the complex128 oracle; shard_sweep and sweep_and_grad at order 4 on a
+    mesh of the card and of the card twice; the large route's kernels
+    against their plain versions at n = 1922."""
+    from torcwa_tpu_torch.parallel import (shard_sweep, sweep_and_grad,
+                                           sweep_mesh)
+    ex1 = load_example('example1_wavelength_sweep')
+    t0 = time.perf_counter()
+    geom = ex1.build_geom(ex1.GRID, dev)
+    geom64 = geom.double()
+    lams = np.linspace(400., 700., 31)
+    freqs = torch.as_tensor(1. / lams, dtype=torch.float32, device=dev)
+    o4 = (4, 4)
+    ex1.t00(freqs, geom, o4)                  # first launches at B = 31
+    ek.reset_launch_counts()
+    T4 = ex1.t00(freqs, geom, o4)
+    launched(torch, ek, 'example1 order 4, B = 31 (n = 162)', SMALL, out)
+    T4o = ex1.t00(freqs.double(), geom64, o4, 'torch')
+    d4 = float((T4.double() - T4o).abs().max())
+    ms4 = once_ms(torch, lambda: ex1.t00(freqs, geom, o4))
+    ms4l = once_ms(torch, lambda: ex1.t00(freqs, geom, o4, 'torch'))
+    print(f'  example1 order 4, 31 wavelengths: |t_xx|^2 vs complex128 '
+          f'oracle {d4:.2e}; {ms4 / 31e3:.6f} s/solve through the kernels, '
+          f'{ms4l / 31e3:.6f} through torch.linalg.eig complex64 (one '
+          f'batch, CUDA events) [{smi}]')
+    check(d4 <= 1e-4, f'example1 order 4: |t_xx|^2 vs oracle {d4:.2e} <= '
+          '1e-4')
+
+    # the sweep primitives: five wavelengths, the raster scale as theta
+    xs = freqs[::7][:5].contiguous()
+    fn = lambda f: ex1.t00(f, geom, o4)
+    loss = lambda f, s: ex1.t00(f, geom * s, o4)
+    s0 = torch.tensor(1., device=dev)
+    direct = fn(xs)
+    s = s0.clone().requires_grad_(True)
+    mean_d = loss(xs, s).mean()
+    grad_d = torch.autograd.grad(mean_d, s)[0]
+    mean_d = mean_d.detach()
+    for mesh in (sweep_mesh(), sweep_mesh([dev] * 2)):
+        got = shard_sweep(fn, mesh)(xs)
+        m, gr = sweep_and_grad(loss, mesh)(xs, s0)
+        e = (float((got - direct).abs().max()),
+             abs(float(m) - float(mean_d)) / abs(float(mean_d)),
+             abs(float(gr) - float(grad_d)) / abs(float(grad_d)))
+        print(f'  mesh of {len(mesh.devices)}: shard_sweep vs direct '
+              f'{e[0]:.2e}; sweep_and_grad mean {float(m):.8f} vs '
+              f'{float(mean_d):.8f} ({e[1]:.2e}), d/ds {float(gr):.6e} vs '
+              f'{float(grad_d):.6e} ({e[2]:.2e})')
+        check(max(e) <= 1e-6, f'shard_sweep and sweep_and_grad on a mesh of '
+              f'{len(mesh.devices)} equal the direct batched call (1e-6)')
+    t1 = time.perf_counter()
+
+    o15 = (15, 15)
+    n15 = 2 * 31 ** 2
+    geom300 = ex1.build_geom(300, dev)
+    f3 = torch.as_tensor(1. / np.array([400., 550., 700.]),
+                         dtype=torch.float32, device=dev)
+    ek.reset_launch_counts()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    T15 = ex1.t00(f3, geom300, o15)
+    ev[1].record()
+    launched(torch, ek, f'example1 order 15, B = 3 (n = {n15})', LARGE, out)
+    ms15 = ev[0].elapsed_time(ev[1])
+    ms15l = once_ms(torch, lambda: ex1.t00(f3, geom300, o15, 'torch'))
+    T15o = ex1.t00(f3.double(), geom300.double(), o15, 'torch')
+    d15 = float((T15.double() - T15o).abs().max())
+    print(f'  example1 order 15 (n = {n15}) at 400, 550, 700 nm: |t_xx|^2 '
+          f'{T15.tolist()}, oracle {T15o.tolist()}: {d15:.2e}; '
+          f'{ms15 / 3e3:.6f} s/solve through the kernels, {ms15l / 3e3:.6f} '
+          f'through torch.linalg.eig complex64 (one batch of 3) [{smi}]')
+    check(d15 <= 1e-4, f'example1 order 15: |t_xx|^2 vs oracle {d15:.2e} '
+          '<= 1e-4')
+    t2 = time.perf_counter()
+    spec = tp.StackSpec(order=o15, L=ex1.L, n_layers=1)
+    with torch.no_grad():
+        eps550 = geom300 * ex1.a_si(str(dev)).eps(550.).to(torch.complex64) \
+            + (1. - geom300)
+        A = layer_matrix(torch, tp, spec, eps550, 550.)
+    hold = large_route_hold(torch, A, f'example1 n = {n15}')
+    A4 = layer_matrix(torch, tp, tp.StackSpec(o4, ex1.L, 1),
+                      geom * ex1.a_si(str(dev)).eps(550.)
+                      .to(torch.complex64) + (1. - geom), 550.)
+    out['holds'] = [small_route_hold(torch, ek, A4, 'example1 n = 162'),
+                    hold]
+    out['s_solve'] = dict(order4=(ms4 / 31e3, ms4l / 31e3),
+                          order15=(ms15 / 3e3, ms15l / 3e3))
+    print(f'  seconds: order 4 and the sweep primitives {t1 - t0:.1f}, order '
+          f'15 {t2 - t1:.1f}, holds {time.perf_counter() - t2:.1f} [{smi}]')
+
+
+def multilayer_and_grid_phase(torch, tp, ek, smi, dev, out):
+    """Phase 21: Example 1-1 (three patterned layers a solve) at orders 0,
+    3, 6, 9 and 12, and Example 3 at order 20 at two points of the 11 x 11
+    grid, its stages timed with utils.StageTimer."""
+    from torcwa_tpu_torch.utils import (StageTimer, measured_gemm_peak,
+                                        mfu_report)
+    t0 = time.perf_counter()
+    ex11 = load_example('example1_1_multilayer')
+    mats = {}
+    for order_n in (0, 3, 6, 9, 12):
+        n = 2 * (2 * order_n + 1) ** 2
+        ek.reset_launch_counts()
+        t = ex11.t_elements(order_n, dev)
+        launched(torch, ek, f'example1_1 order {order_n} (n = {n})',
+                 LARGE if n >= 512 else SMALL, out)
+        tot = sum(ex11.circular(*t))
+        print(f'  example1_1 order {order_n}: TRR + TLR + TRL + TLL '
+              f'{tot:.6f}')
+        check(tot <= 1 + 1e-4, f'example1_1 order {order_n}: TRR + TLR + '
+              f'TRL + TLL {tot:.6f} <= 1 + 1e-4')
+        if order_n in (0, 3):
+            spec = tp.StackSpec(order=(order_n,) * 2, L=ex11.L, n_layers=1)
+            mats[n] = layer_matrix(torch, tp, spec, ex11.layers(dev)[1],
+                                   ex11.LAMB0)
+    t_o = ex11.t_elements(12, dev, torch.float64, 'torch')
+    d = max(abs(a - b) for a, b in zip(t, t_o))
+    print(f'  example1_1 order 12: (txx, tyx, txy, tyy) vs the complex128 '
+          f'oracle {d:.2e}')
+    check(d <= 1e-4, f'example1_1 order 12: each t within 1e-4 of the '
+          f'complex128 oracle ({d:.2e})')
+    t1 = time.perf_counter()
+
+    ex3 = load_example('example3_parameter_sweep')
+    _, pts = ex3.grid_points(ex3.NW)
+    ek.reset_launch_counts()
+    ex3.sweep(pts, device=dev)                        # its default, order 4
+    launched(torch, ek, f'example3 order {ex3.ORDER[0]}, B = {len(pts)} '
+             f'(n = 162)', SMALL, out)
+    o20 = (20, 20)
+    n20 = 2 * 41 ** 2
+    _, pts = ex3.grid_points(11)
+    pts = pts[[0, 60]]                     # (50, 50) and (150, 150) nm
+    stages, whole = StageTimer(), StageTimer()
+    ek.reset_launch_counts()
+    with timed_eig_stages(torch, stages, whole):
+        t3 = ex3.t00_of_wxwy(pts[:, 0], pts[:, 1], o20, device=dev)
+    launched(torch, ek, f'example3 order 20, B = 2 (n = {n20})', LARGE, out)
+    t3o = ex3.t00_of_wxwy(pts[1:, 0], pts[1:, 1], o20, device=dev,
+                          dtype=torch.float64, eig_backend='torch')
+    d3 = float((t3[1:].abs() ** 2 - t3o.abs() ** 2).abs().max())
+    peak = measured_gemm_peak(2048)
+    print(f'  example3 order 20 at (Wx, Wy) {pts.tolist()}: |t|^2 '
+          f'{(t3.abs() ** 2).tolist()}; at {pts[1].tolist()} vs the '
+          f'complex128 oracle {d3:.2e}')
+    print(f'  its eig forward {whole.totals["eig"]:.3f} s, its stages '
+          f'(StageTimer, two lanes):\n    ' +
+          stages.report().replace('\n', '\n    '))
+    print(f'  measured_gemm_peak(2048) {peak:.3f} TFLOP/s [{smi}]; one lane:')
+    per = {k: v / stages.counts[k] for k, v in stages.totals.items()}
+    for line in mfu_report(per, n20, peak):
+        print('    ' + line)
+    check(d3 <= 1e-4, f'example3 order 20: |t|^2 vs oracle {d3:.2e} <= 1e-4')
+    t2 = time.perf_counter()
+    # the large route's new sizes here, n = 722 and 1250, are held by
+    # qr_compare.py --stage gates: their plain versions take ~16 s
+    out['holds'] = [small_route_hold(torch, ek, mats[n], f'example1_1 n = {n}')
+                    for n in (2, 98)]
+    print(f'  seconds: example 1-1 {t1 - t0:.1f}, example 3 {t2 - t1:.1f}, '
+          f'holds {time.perf_counter() - t2:.1f} [{smi}]')
 
 
 def main():
@@ -2788,6 +3218,17 @@ def run(torch):
           'the examples\' matrices (n = 882, 1054)')
     example_plain_checks(torch, exs)
 
+    phase('19. Examples 0, 2 and 4 on the card (the class API)')
+    sw = {19: {}, 20: {}, 21: {}}
+    class_examples_phase(torch, tp, ek, smi, dev, sw[19])
+    phase('20. Example 1, one raster a wavelength (orders 4 and 15), and the '
+          'sweep primitives')
+    sweep_phase(torch, tp, ek, smi, dev, sw[20])
+    phase('21. Example 1-1 (orders 0 to 12) and Example 3 at order 20')
+    multilayer_and_grid_phase(torch, tp, ek, smi, dev, sw[21])
+    check(f32_precision_pinned(), 'the script\'s IEEE f32 setting holds '
+          'after the sweep path')
+
     if FAILURES:
         print(f'\n{len(FAILURES)} check(s) failed:', *FAILURES, sep='\n  ')
         return 1
@@ -2827,6 +3268,14 @@ def run(torch):
         kernels[list(REPLACES).index(k)].update(
             work=f'the first {budget} sweeps at B = 8, n = 338',
             full_ms=t_full, full_bound_ms=b_full[0], full_bound_by=b_full[1])
+    # the sweep path (phases 19-21): each kernel's launches on each of its
+    # paths, and its plain-version error at each new size
+    for k in SMALL + LARGE:
+        kernels[list(REPLACES).index(k)].update(sweep_path=dict(
+            launches={label: got[k] for p in sw.values()
+                      for label, got in p['launches'].items() if k in got},
+            held={f'n={h["n"]}': h[k] for p in sw.values()
+                  for h in p['holds'] if k in h}))
     print(smi)
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {

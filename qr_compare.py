@@ -68,7 +68,12 @@ card's name and power limit.
   n = 700, H and Q from ek.hessenberg (the one-block kernel,
   test_schur_qr_ms_one_block_kernel_above_the_cluster); with the stats
   and each run's seconds.  The plain versions take minutes at n = 640 and
-  700.
+  700.  Then the large route's kernels on the sizes of chip_smoke.py phase
+  21 whose plain versions do not fit the phase: Example 1-1's 30-degree
+  layer at orders 9 and 12 (n = 722, 1250), held as phase 18 holds the
+  examples' matrices (two schur_ms sweeps and tri_vectors_blocked against
+  their plain versions, the whole Schur form against complex128
+  eigenvalues); exits non-zero if one of those checks fails.
 
 Needs a CUDA card; exits non-zero without one.
 """
@@ -377,6 +382,20 @@ def one_gates(label):
                             seconds=time.perf_counter() - t0)
         out[f'n={n}'] = rec
         print(json.dumps(out), flush=True)
+    import torcwa_tpu_torch as tp
+    from torcwa_tpu_torch._constants import f32_pinned
+    ex11 = cs.load_example('example1_1_multilayer')
+    with f32_pinned():
+        for order_n in (9, 12):
+            spec = tp.StackSpec(order=(order_n,) * 2, L=ex11.L, n_layers=1)
+            A = cs.layer_matrix(torch, tp, spec, ex11.layers(dev)[1],
+                                ex11.LAMB0)
+            n = A.shape[-1]
+            out[f'example1_1 n={n}'] = cs.large_route_hold(
+                torch, A, f'example1_1 n = {n}')
+            print(json.dumps(out), flush=True)
+    if cs.FAILURES:
+        sys.exit(1)
 
 
 def main(args):

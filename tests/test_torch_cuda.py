@@ -944,3 +944,47 @@ def test_load_state_defaults_to_the_card(dev, tmp_path):
         assert st['rho'].device.type == 'cuda' and int(st['step']) == 7
         assert st['m'][0].device.type == 'cuda'
     assert load_state(path, device='cpu')['rho'].device.type == 'cpu'
+
+
+def test_batched_rasters_through_the_kernels_match_a_loop(dev):
+    # one raster a lane, [B, 1, nx, ny], through the eig kernels (small
+    # route, B = 3 at n = 50) against each lane solved alone on the card,
+    # float32, |S| within 1e-4 of max|S|
+    import torcwa_tpu_torch as tp
+    rng = np.random.default_rng(5)
+    eps = torch.as_tensor((1. + 3. * rng.random((3, 1, 32, 32)))
+                          .astype(np.float32), device=dev)
+    spec = tp.StackSpec(order=(2, 2), L=(300., 300.), n_layers=1,
+                        has_input=True)
+    freq = torch.tensor([1 / 480., 1 / 560., 1 / 640.], device=dev)
+    ek.reset_launch_counts()
+    S, _ = tp.solve_stack_pair(spec, freq, 0.1, 0., eps, [250.],
+                               eps_in=1.46 ** 2)
+    assert ek.LAUNCHES['schur_qr'] == 1
+    for b in range(3):
+        Sb, _ = tp.solve_stack_pair(spec, freq[b], 0.1, 0., eps[b], [250.],
+                                    eps_in=1.46 ** 2)
+        for x, y in zip(S, Sb):
+            assert float((x[b] - y).abs().max()) <= 1e-4 * float(
+                y.abs().max())
+
+
+def test_shard_sweep_on_the_card_twice(dev):
+    # five points on a mesh of the card twice: the padding path on one
+    # card, equal to the direct batched call
+    from torcwa_tpu_torch.parallel import shard_sweep, sweep_mesh
+    mesh = sweep_mesh(['cuda:0'] * 2)
+    assert sweep_mesh().devices[0] == dev
+    xs = torch.linspace(0.3, 2.1, 5, device=dev)
+    got = shard_sweep(lambda x: {'t': torch.sin(3. * x) * x}, mesh)(xs)
+    assert got['t'].device == dev and got['t'].shape == (5,)
+    torch.testing.assert_close(got['t'], torch.sin(3. * xs) * xs, rtol=1e-6,
+                               atol=0.)
+
+
+def test_measured_gemm_peak_on_the_card(dev):
+    # complex64 in IEEE f32: above 0 and at most 1.05 x 67 TFLOP/s, the
+    # card's float32 rate outside the tensor cores
+    from torcwa_tpu_torch.utils import measured_gemm_peak
+    peak = measured_gemm_peak(2048)
+    assert 0 < peak <= 1.05 * 67.

@@ -6,10 +6,11 @@ fields), the dispersive materials (``materials``: ``TabulatedMaterial``,
 ``aSiH``), the functional solve (``solve_stack_pair`` with every option of
 the JAX package's, the S-parameters, sources and diagnostics, and the
 fields through ``fields.fmm_field_adapter``), the optimisation loop
-(``optim``) and checkpointing and export (``utils``) run on complex
-tensors, with the layer eigendecomposition in hand-written CUDA kernels
-for Hopper (``ops/eig_kernels.py``, sources in ``csrc/``).  On a CPU tensor
-each kernel wrapper uses its plain PyTorch version.
+(``optim``), sweeps split over devices (``parallel``) and timing,
+checkpointing and export (``utils``) run on complex tensors, with the
+layer eigendecomposition in hand-written CUDA kernels for Hopper
+(``ops/eig_kernels.py``, sources in ``csrc/``).  On a CPU tensor each
+kernel wrapper uses its plain PyTorch version.
 
 Importing the package sets no global state, and neither does a solve:
 every entry point (``rcwa``'s methods, ``solve_stack_pair``,
@@ -25,7 +26,7 @@ from .fmm import (StackSpec, kvectors_real, pq_pair, layer_smatrix_pair,
                   solve_stack_pair, redheffer_pair, sparam_xy_pair,
                   sparam_ps_pair, source_fourier_pair, source_planewave_pair,
                   diffraction_angle_pair, return_layer_pair, simulate_txx)
-from . import fields, materials, optim, utils
+from . import fields, materials, optim, parallel, utils
 from .fields import fmm_field_adapter
 from .materials import TabulatedMaterial, aSiH
 from .optim import maximize_adam
@@ -38,4 +39,5 @@ __all__ = ['geometry', 'rcwa_geo', 'Eig', 'eig', 'StackSpec',
            'sparam_ps_pair', 'source_fourier_pair', 'source_planewave_pair',
            'diffraction_angle_pair', 'return_layer_pair', 'simulate_txx',
            'fields', 'fmm_field_adapter', 'materials', 'TabulatedMaterial',
-           'aSiH', 'optim', 'maximize_adam', 'utils', 'rcwa', '__version__']
+           'aSiH', 'optim', 'maximize_adam', 'parallel', 'utils', 'rcwa',
+           '__version__']

@@ -235,18 +235,23 @@ def solve_stack_pair(spec, freq, inc_ang, azi_ang, eps_grids, thicknesses,
         read scalars from ``eps_scalars`` / ``mu_scalars`` (in stack order)
         and skip the eig (O(N) bdp algebra, the class's fast path).
       freq: 1/wavelength, a scalar or a (B,) tensor; the results carry a
-        leading B dimension when it is a tensor with one.
+        leading B dimension when it is a tensor with one, or when the
+        rasters are batched (a scalar freq is then broadcast to their B).
       inc_ang, azi_ang: real scalars (radians).
       eps_grids: [n_patterned, nx, ny] permittivity rasters (real or
-        complex) of the patterned layers, in stack order; with them the
-        precision of the solve.  With no patterned layer it may be
-        (0, nx, ny) or None, and then eps_scalars or the claddings give
-        it; with no layer at all the S-matrix is the claddings' alone.
+        complex) of the patterned layers, in stack order, shared by every
+        wavelength of the batch; or [B, n_patterned, nx, ny], one raster
+        per lane (B as freq's: the port's counterpart of vmap over the
+        rasters).  With them the precision of the solve.  With no
+        patterned layer it may be (0, nx, ny) or None, and then
+        eps_scalars or the claddings give it; with no layer at all the
+        S-matrix is the claddings' alone.
       thicknesses: [n_layers] real (all layers).
       eps_in / eps_out: complex cladding permittivities when
         spec.has_input / spec.has_output.
-      mu_grids: [n_patterned, nx, ny] permeability rasters (None: mu = 1,
-        whose structure makes P cheaper).
+      mu_grids: [n_patterned, nx, ny] or [B, n_patterned, nx, ny]
+        permeability rasters (None: mu = 1, whose structure makes P
+        cheaper).
       eps_scalars / mu_scalars: [n_homogeneous] of the homogeneous layers
         (mu_scalars None: 1).
       mu_in / mu_out: cladding permeabilities (None: 1).
@@ -265,7 +270,9 @@ def solve_stack_pair(spec, freq, inc_ang, azi_ang, eps_grids, thicknesses,
         the permittivities (then freq and thicknesses), else the CUDA card,
         so a stack given only as Python numbers solves on the card.
 
-    Returns ([S11, S21, S12, S22], internals), each block (B, 2N, 2N).
+    Returns ([S11, S21, S12, S22], internals), each block (B, 2N, 2N);
+    ``internals['conv']`` and ``['mu_conv']`` are (n_layers, N, N), or
+    (n_layers, B, N, N) for batched rasters.
     Forward and backward run in IEEE f32 (``_constants.pinned``).
     """
     hmask = tuple(bool(h) for h in spec.homogeneous) or (
@@ -288,9 +295,22 @@ def solve_stack_pair(spec, freq, inc_ang, azi_ang, eps_grids, thicknesses,
                        if isinstance(v, torch.Tensor)), 'cuda')
     dev = torch.device(device)
     order, L = spec.order, spec.L
+    # the rasters, each (P, 1 | B, nx, ny): shared by the lanes or one a lane
+    grids, batched = {}, False
+    if pat:
+        for key, g in (('eps', eps_grids), ('mu', mu_grids)):
+            if g is not None:
+                g = torch.as_tensor(g, device=dev)
+                batched |= g.dim() == 4
+                grids[key] = g.transpose(0, 1) if g.dim() == 4 else g[:, None]
     freq = torch.as_tensor(freq, dtype=rdt, device=dev)
-    scalar = freq.dim() == 0
+    scalar = freq.dim() == 0 and not batched
     freq = freq.reshape(-1)
+    lanes = {freq.shape[0]} | {g.shape[1] for g in grids.values()}
+    if len(lanes - {1}) > 1:
+        raise ValueError(f'frequencies and rasters give {sorted(lanes)} '
+                         f'lanes; one B (or 1) was expected')
+    freq = freq.expand(max(lanes))
     omega = 2 * PI_REF * freq
     thicknesses = torch.as_tensor(thicknesses, dtype=rdt, device=dev)
     one = torch.ones((), dtype=cdt, device=dev)
@@ -314,15 +334,12 @@ def solve_stack_pair(spec, freq, inc_ang, azi_ang, eps_grids, thicknesses,
     rows = [None] * spec.n_layers
     conv = mu_conv = None
     if pat:
-        conv = material_conv(torch.as_tensor(eps_grids, device=dev), order,
-                             cdt)                                # (P, N, N)
-        if mu_grids is not None:
-            mu_conv = material_conv(torch.as_tensor(mu_grids, device=dev),
-                                    order, cdt)
+        conv = material_conv(grids['eps'], order, cdt)   # (P, 1 | B, N, N)
+        if 'mu' in grids:
+            mu_conv = material_conv(grids['mu'], order, cdt)
         out = _layer_smatrix_body(
-            conv[:, None], kx, ky, Vf_inv, omega, thicknesses[pat][:, None],
-            broadening, eig_backend,
-            None if mu_conv is None else mu_conv[:, None], with_modes,
+            conv, kx, ky, Vf_inv, omega, thicknesses[pat][:, None],
+            broadening, eig_backend, mu_conv, with_modes,
             avoid_pinv_instability, max_pinv_instability)
         if avoid_pinv_instability:
             internals['pinv_instability'] = out[-1]
@@ -348,18 +365,24 @@ def solve_stack_pair(spec, freq, inc_ang, azi_ang, eps_grids, thicknesses,
         internals.update(kz=stack(base), E=stack(base + 1),
                          H=stack(base + 2))
         # eps and mu convolution matrices of every layer in stack order
-        # (a homogeneous layer's: the scalar times the identity)
+        # (a homogeneous layer's: the scalar times the identity), one a
+        # lane for batched rasters
         eye = torch.eye(kx.shape[-1], dtype=cdt, device=dev)
+        shape = ((kx.shape[0],) if batched else ()) + eye.shape
+
+        def lanes_of(m):
+            return m.expand(shape) if batched else m.reshape(shape)
+
         convs, mus = [], []
         for i in range(spec.n_layers):
             if hmask[i]:
                 j = hom.index(i)
-                convs.append(eps_h[j] * eye)
-                mus.append(mu_h[j] * eye)
+                convs.append(lanes_of(eps_h[j] * eye))
+                mus.append(lanes_of(mu_h[j] * eye))
             else:
                 j = pat.index(i)
-                convs.append(conv[j])
-                mus.append(eye if mu_conv is None else mu_conv[j])
+                convs.append(lanes_of(conv[j]))
+                mus.append(lanes_of(eye if mu_conv is None else mu_conv[j]))
         internals.update(conv=torch.stack(convs), mu_conv=torch.stack(mus))
         Ss = [[r[0], r[1], r[1], r[0]] for r in rows]
         Cs = ([(torch.cat([r[2], r[3]], -2), torch.cat([r[3], r[2]], -2))
