@@ -77,12 +77,14 @@ Phases (each prints its results; any failure exits non-zero):
      Schur stage swapped: schur_qr_baed at order 6 (0 and 10 degrees) and
      order 7 (10 degrees), schur_qr_packed at order 6 (10 degrees), against
      the complex128 oracle
- 14. times of the two beside schur_qr at B = 8 and n = 338, 450, 578; each
-     against its plain version at the path's shape (8, 338, 338): the state
-     after a budget of sweeps on the wave matrices, one sweep element by
-     element on a random batch; the composed eig and the order-6 sweep
-     through each, and the B = 8 batch through the large route at n = 450
-     and 578
+ 14. times of the two beside schur_qr at B = 8 and n = 338, 450, 578, with
+     the kernel schur_qr_baed launches there (the cluster size, its shared
+     memory, the clusters the card runs at once); each against its plain
+     version at the path's shape (8, 338, 338): the state after a budget of
+     sweeps on the wave matrices, one sweep element by element on a random
+     batch (schur_qr_baed also at n = 450 and 578, on its other two
+     kernels); the composed eig and the order-6 sweep through each, and the
+     B = 8 batch through the large route at n = 450 and 578
  15. the class API: a-Si:H rectangle (300 nm), SU-8 spacer (200 nm,
      homogeneous), SiN circle (150 nm) between the substrate and air, order
      (6, 6), 532 nm, 10 degrees, complex64 through the eig kernels, forward
@@ -1897,6 +1899,18 @@ def batched_alt_times(torch, tp, ek, smi, eps32, out, times, bounds):
         s_pk = sp.schur_qr_packed(H, Q, return_stats=True)[2]
         s_b8 = sb.schur_qr_baed(H, Q, return_stats=True)[2]
         s_b16 = baed16(H, Q, return_stats=True)[2]
+        info = sb.schur_qr_baed_cluster_info(n)
+        one_wave = 0 < B <= info['clusters_at_once']
+        print(f'    B = {B}, n = {n}: schur_qr_baed fits a cluster of '
+              f'{info["cluster"]} CTAs a matrix (0: the one-block kernel), '
+              f'{info["smem_bytes"]} bytes of shared memory a CTA, '
+              f'{info["clusters_at_once"]} clusters at once on this card: '
+              f'this batch runs on '
+              + (f'clusters of {info["cluster"]}' if one_wave
+                 else 'the one-block kernel'))
+        check(info['cluster'] == sb.schur_qr_baed_cluster(n),
+              f'n = {n}: the C entry point\'s cluster size is the one '
+              'schur_qr_baed_cluster names')
         ok = all(bool((s[0] == 0).all()) for s in (s_qr, s_pk, s_b8, s_b16))
         check(ok, f'n = {n}: schur_qr, schur_qr_packed and schur_qr_baed '
               '(m = 8, 16) converge on every lane')
@@ -2021,6 +2035,23 @@ def batched_alt_times(torch, tp, ek, smi, eps32, out, times, bounds):
               f'{name} ({B}, {n}), one sweep: kernel == plain element-wise, '
               'T within 1e-4 ||A||_2, Z within 1e-4')
         out['err_' + name[len('schur_qr_'):]] = dT
+    # schur_qr_baed's other kernels (phase 13's n = 450 on a cluster of 16,
+    # n = 578 on the one-block kernel), one sweep on two random lanes
+    for n_b in (450, 578):
+        Ar = torch.stack([rand_c64(torch, n_b, 100 + b, A.device)
+                          for b in range(2)])
+        Hr, Qr = ek.hessenberg(Ar)
+        a2 = float(torch.linalg.matrix_norm(Ar, ord=2).min())
+        T1, Z1 = sb.schur_qr_baed(Hr, Qr, max_iters=1)
+        T1p, Z1p = sb.schur_qr_baed_plain(Hr, Qr, max_iters=1)
+        dT = float((torch.triu(T1, 1) - torch.triu(T1p, 1)).abs().max())
+        dZ = float((Z1 - Z1p).abs().max())
+        print(f'  schur_qr_baed (cluster {sb.schur_qr_baed_cluster(n_b)}), '
+              f'one sweep on a random batch, B=2 n={n_b}: max|T - T_plain| = '
+              f'{dT:.3e} ({dT / a2:.2e} ||A||_2), max|Z - Z_plain| = {dZ:.3e}')
+        check(dT <= 1e-4 * a2 and dZ <= 1e-4,
+              f'schur_qr_baed (2, {n_b}), one sweep: kernel == plain '
+              'element-wise, T within 1e-4 ||A||_2, Z within 1e-4')
 
     # the order-6 sweep through each stage beside the default
     keep = eq.SMALL_SCHUR
@@ -2598,12 +2629,14 @@ def large_route_hold(torch, A, label):
     err_vec, vec_plain, _, _ = blocked_vectors_check(
         torch, vb, T, vb.tri_vectors_blocked(T), label)
     # one run each, the kernels warm from the path: the whole Schur form,
-    # the blocked vectors and the library's whole eig on the same matrix,
-    # beside the bounds of phases 7 and 16-17
+    # the blocked vectors, the library's whole eig on the same matrix and
+    # its eig of T (tri_vectors_blocked's library figure), beside the bounds
+    # of phases 7 and 16-17
     t = {'schur_ms': once_ms(torch, lambda: sm.schur_ms(H, Q, **cfg)),
          'tri_vectors_blocked': once_ms(torch,
                                         lambda: vb.tri_vectors_blocked(T)),
-         'torch.linalg.eig': once_ms(torch, lambda: torch.linalg.eig(A))}
+         'torch.linalg.eig': once_ms(torch, lambda: torch.linalg.eig(A)),
+         'torch.linalg.eig(T)': once_ms(torch, lambda: torch.linalg.eig(T))}
     b = {'schur_ms': bound(4 * n * n * C64, st[5]),
          'two_sweeps': bound(4 * n * n * C64, need2),
          'tri_vectors_blocked': bound(2 * n * n * C64, n ** 3 / 6 * 8)}
@@ -2612,7 +2645,8 @@ def large_route_hold(torch, A, label):
           f'{ms2[0]:.1f}, plain {ms2[1]:.1f}, bound {b["two_sweeps"][0]:.4f}'
           f'), tri_vectors_blocked {t["tri_vectors_blocked"]:.2f} ms (bound '
           f'{b["tri_vectors_blocked"][0]:.4f} by '
-          f'{b["tri_vectors_blocked"][1]}, plain {vec_plain:.1f}), '
+          f'{b["tri_vectors_blocked"][1]}, plain {vec_plain:.1f}, '
+          f'torch.linalg.eig(T) {t["torch.linalg.eig(T)"]:.1f}), '
           f'torch.linalg.eig {t["torch.linalg.eig"]:.1f} ms; '
           f'{time.perf_counter() - t0:.1f} s')
     return dict(n=n, schur_ms=err_ms, tri_vectors_blocked=err_vec,

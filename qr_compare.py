@@ -2,11 +2,13 @@
 call on the card: the batched single-shift Schur QR (csrc/schur_qr.cu;
 the default), the batched Hessenberg reduction (csrc/hessenberg.cu), the
 batched triangular eigenvectors (csrc/tri_vectors.cu), the one-launch
-multishift QR (csrc/schur_qr_ms.cu) or the blocked triangular eigenvectors
-(csrc/tri_vectors_blocked.cu).
+multishift QR (csrc/schur_qr_ms.cu), the blocked triangular eigenvectors
+(csrc/tri_vectors_blocked.cu) or the two batched Schur stages on no route
+(csrc/schur_qr_packed.cu, csrc/schur_qr_baed.cu).
 
     python3 qr_compare.py [--stage schur_qr|hessenberg|tri_vectors|
                                    schur_qr_ms|tri_vectors_blocked|
+                                   schur_qr_packed|schur_qr_baed|
                                    unitarity|gates]
                           [--fmad=false] [DIR ...]
                           (default: this checkout)
@@ -49,6 +51,27 @@ card's name and power limit.
   order-20 Schur factor (phase 6's T, 2N = 3362, S precomputed, as
   chip_smoke.py phase 7), the whole tri_vectors_blocked with its GEMMs
   and torch.linalg.eig(T) beside them, with checksums of T and Y.
+* schur_qr_packed: sp.schur_qr_packed on phase 14's 10-degree batches (B =
+  8, n = 338, 450, 578), H and Q from ek.hessenberg, with per-lane (hi,
+  sweeps, rotations), the worst lane's residual and unitarity, ek.schur_qr
+  on the same H, and the composed eig through each beside one
+  torch.linalg.eig complex64 call.  With --fmad=false the checkout's
+  csrc/schur_qr_packed.cu is built alone without FMA contraction and only
+  the stats are read, as for schur_qr.
+* schur_qr_baed: sb.schur_qr_baed on the same batches at m = 8 and 16,
+  B = 1, 2, 4, 8 (the first B lanes), with ek.schur_qr at each B beside it,
+  per-lane (hi, sweeps, rotations, rows AED deflated, AED multiply-adds) at
+  B = 8, the kernel the checkout launches (cluster size, shared memory,
+  clusters the card runs at once, where it reports them), the AED pass's
+  cycles by part at B = 8, m = 8 (a build of csrc/schur_qr_baed.cu alone
+  with clock64() probes: TORCWA_AED_CLOCKS in aed_warp.cuh, or, for a
+  checkout whose AED is ms_aed.cuh's aed_window, probes inserted into a
+  copy of it at the same parts; thread 0 of the AED threads sums the cycles
+  of the window QR's scan and shift, a rotation's forming, row update,
+  barriers and column update, and the rest of the pass, and the sweep
+  loop by phase: AED, transform, chase), and the composed
+  eig through it and through ek.schur_qr beside one torch.linalg.eig
+  complex64 call.  --fmad=false as for schur_qr_packed.
 * unitarity: max|Z^H Z - I| of the multishift Schur stages where their
   float32 round-off meets chip_smoke.py's 1e-5 gates: schur_qr_ms (m = 16)
   on the order-6 wave matrix at 500 nm (phase 10) and schur_qr_baed on the
@@ -89,20 +112,175 @@ CASES = (('0 deg', 6, 0.), ('10 deg', 6, 10.), ('10 deg', 7, 10.),
          ('10 deg', 8, 10.))
 
 
-def _no_fma_library(_build):
-    """The checkout's csrc/schur_qr.cu alone, built without contraction."""
-    out = _build.BUILD_ROOT / 'qr_compare_nofma' / 'libschur_qr.so'
+def _alone_library(_build, source, names, flags=('-fmad=false',),
+                   src_dir=None):
+    """The checkout's csrc/<source> alone (from src_dir when given), built
+    with `flags` (default: without contraction), its entry points `names`
+    bound."""
+    out = _build.BUILD_ROOT / 'qr_compare_alone' / f'lib{source[:-3]}.so'
     out.parent.mkdir(parents=True, exist_ok=True)
     subprocess.run([_build._nvcc(), '-gencode',
                     'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
-                    '-Xcompiler', '-fPIC', '-shared', '-fmad=false', '-o',
-                    str(out), str(_build.CSRC / 'schur_qr.cu')], check=True)
+                    '-Xcompiler', '-fPIC', '-shared', *flags, '-o',
+                    str(out), str((src_dir or _build.CSRC) / source)],
+                   check=True)
     lib = ctypes.CDLL(str(out))
-    for name in ('torcwa_schur_qr_c64', 'torcwa_schur_qr_v2_c64'):
+    for name in names:
         fn = getattr(lib, name)
-        fn.argtypes = _build._SIGNATURES[name]
+        fn.argtypes = _build._SIGNATURES.get(name, [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib
+
+
+def _no_fma_library(_build):
+    """The checkout's csrc/schur_qr.cu alone, built without contraction."""
+    return _alone_library(_build, 'schur_qr.cu',
+                          ('torcwa_schur_qr_c64', 'torcwa_schur_qr_v2_c64'))
+
+
+# The AED pass's parts, in the order of csrc/aed_warp.cuh's Clk slots: the
+# cycles of the whole pass, of the window QR, of its scans and shifts, of a
+# rotation's forming, row update, barriers (none a rotation in
+# aed_warp.cuh) and column update, of the rest
+# (spike, shifts, Householder, write-back), and the counts of rotations,
+# QR sweeps (scans) and passes; then the kernel's sweep loop by phase (the
+# whole loop, the AED phase with its barriers, the transform, the chase)
+# and its sweeps
+AED_CLK_SLOTS = ('total', 'qr', 'scan', 'form', 'rows', 'barrier', 'cols',
+                 'after', 'rotations', 'sweeps', 'passes', 'loop',
+                 'aed_phase', 'transform', 'chase', 'loop_sweeps')
+# The same probes inserted into the AED of a checkout that has no
+# aed_warp.cuh (csrc/ms_aed.cuh's aed_window): (anchor, replacement) in
+# order, thread 0's cycles summed into torcwa_aed_clk
+_MS_AED_PROBES = (
+    ('#include "common.cuh"\n',
+     '#include "common.cuh"\n'
+     '__device__ unsigned long long torcwa_aed_clk[16];\n'),
+    ('  const int tid = threadIdx.x;\n'
+     '  const int s = max(hi - kw + 1, lo + 1);\n',
+     '  const int tid = threadIdx.x;\n'
+     '  const int s = max(hi - kw + 1, lo + 1);\n'
+     '  const long long clk_t0 = clock64();\n'
+     '  unsigned long long clk[11] = {};\n'),
+    ('  int it = 0, mhi = kwe - 1;\n  while (true) {\n',
+     '  int it = 0, mhi = kwe - 1;\n  const long long clk_q0 = clock64();\n'
+     '  while (true) {\n    long long clk_a = clock64();\n'),
+    ('    aed_sync<kNT, kBar>();\n    mhi = s_mhi;\n',
+     '    aed_sync<kNT, kBar>();\n    clk[2] += clock64() - clk_a;\n'
+     '    ++clk[9];\n    mhi = s_mhi;\n'),
+    ('      const Givens g = givens_rounded(s_x, s_y);\n'
+     '      const float c = g.c;\n      const float2 sg = g.s;\n',
+     '      long long clk_b = clock64();\n'
+     '      const Givens g = givens_rounded(s_x, s_y);\n'
+     '      const float c = g.c;\n      const float2 sg = g.s;\n'
+     '      asm volatile("" ::"f"(c), "f"(sg.x), "f"(sg.y));\n'
+     '      { const long long t = clock64(); clk[3] += t - clk_b; '
+     'clk_b = t; }\n'),
+    ('      aed_sync<kNT, kBar>();\n      // columns k, k+1 of W',
+     '      { const long long t = clock64(); clk[4] += t - clk_b; '
+     'clk_b = t; }\n      aed_sync<kNT, kBar>();\n'
+     '      { const long long t = clock64(); clk[5] += t - clk_b; '
+     'clk_b = t; }\n      // columns k, k+1 of W'),
+    ('      aed_sync<kNT, kBar>();\n    }\n    ++it;\n  }\n',
+     '      { const long long t = clock64(); clk[6] += t - clk_b; '
+     'clk_b = t; }\n      aed_sync<kNT, kBar>();\n'
+     '      clk[5] += clock64() - clk_b;\n      ++clk[8];\n    }\n'
+     '    ++it;\n  }\n  clk[1] = clock64() - clk_q0;\n'
+     '  const long long clk_c0 = clock64();\n'),
+    ('  AedResult res;\n',
+     '  if (tid == 0) {\n    const long long t = clock64();\n'
+     '    clk[7] = t - clk_c0;\n    clk[0] = t - clk_t0;\n    clk[10] = 1;\n'
+     '    for (int i = 0; i < 11; ++i) atomicAdd(&torcwa_aed_clk[i], clk[i]);\n'
+     '  }\n  AedResult res;\n'),
+)
+# and into its schur_qr_baed.cu's sweep loop, thread 0's phases
+_BAED_PROBES = (
+    ('  long long deflated = 0, aed_cmacs = 0;\n',
+     '  long long deflated = 0, aed_cmacs = 0;\n'
+     '  const long long clk_l0 = clock64();\n'
+     '  unsigned long long clk[3] = {};\n'),
+    ('      // ---- AED in the first warps; the shifts come with it ----\n',
+     '      const long long clk_a = clock64();\n'),
+    ('      const int s = s_aed.s, kwe = s_aed.kwe;\n',
+     '      const long long clk_b = clock64();\n      clk[0] += clk_b - clk_a;\n'
+     '      const int s = s_aed.s, kwe = s_aed.kwe;\n'),
+    ('      // ---- chase over the whole active block (ms_chase.cuh) ----\n',
+     '      const long long clk_c = clock64();\n      clk[1] += clk_c - clk_b;\n'),
+    ('        chase_whole_block<kThreads>(H, Zt, n, lo, hi, m, s_shift, cc, '
+     '&s_rot);\n',
+     '        chase_whole_block<kThreads>(H, Zt, n, lo, hi, m, s_shift, cc, '
+     '&s_rot);\n      clk[2] += clock64() - clk_c;\n'),
+    ('  if (tid == 0) {\n    stats[0] = hi;\n',
+     '  if (tid == 0) {\n'
+     '    atomicAdd(&torcwa_aed_clk[11], clock64() - clk_l0);\n'
+     '    for (int i = 0; i < 3; ++i) atomicAdd(&torcwa_aed_clk[12 + i], '
+     'clk[i]);\n'
+     '    atomicAdd(&torcwa_aed_clk[15], (unsigned long long)it);\n'
+     '  }\n  if (tid == 0) {\n    stats[0] = hi;\n'),
+)
+# reads the slots and sets them to 0 again
+_CLK_READER = """
+extern "C" int torcwa_aed_clocks(void* out) {
+  static const unsigned long long zero[16] = {};
+  cudaError_t e = cudaMemcpyFromSymbol(out, SYMBOL, sizeof(zero));
+  if (e == cudaSuccess) e = cudaMemcpyToSymbol(SYMBOL, zero, sizeof(zero));
+  return (int)e;
+}
+"""
+
+
+def probed_sources(csrc, dst):
+    """A copy of csrc in dst whose schur_qr_baed.cu sums the AED pass's
+    cycles by part and exports torcwa_aed_clocks; returns the -D flags its
+    build needs."""
+    import shutil
+    shutil.rmtree(dst, ignore_errors=True)
+    shutil.copytree(csrc, dst)
+    warp = dst / 'aed_warp.cuh'
+    if warp.exists() and 'TORCWA_AED_CLOCKS' in warp.read_text():
+        symbol, flags = 'aed_warp::torcwa_aed_clk', ['-DTORCWA_AED_CLOCKS']
+    else:
+        for name, probes in (('ms_aed.cuh', _MS_AED_PROBES),
+                             ('schur_qr_baed.cu', _BAED_PROBES)):
+            text = (dst / name).read_text()
+            for anchor, new in probes:
+                if text.count(anchor) != 1:
+                    raise RuntimeError(f'{name}: probe anchor {anchor!r} '
+                                       'not found once')
+                text = text.replace(anchor, new)
+            (dst / name).write_text(text)
+        symbol, flags = 'torcwa_aed_clk', []
+    src = dst / 'schur_qr_baed.cu'
+    src.write_text(src.read_text() + _CLK_READER.replace('SYMBOL', symbol))
+    return flags
+
+
+def aed_cycles(torch, clk, H, Q, m, kw, budget):
+    """One launch of the probed schur_qr_baed on (H, Q): the AED pass's
+    cycles by part, per pass, per QR sweep and per rotation."""
+    B, n = H.shape[0], H.shape[-1]
+    T, Zt = H.clone(), Q.mT.contiguous()
+    st = torch.zeros(B, 5, dtype=torch.int64, device=H.device)
+    buf = (ctypes.c_ulonglong * len(AED_CLK_SLOTS))()
+    clk.torcwa_aed_clocks(buf)
+    torch.cuda.synchronize()
+    err = clk.torcwa_schur_qr_baed_c64(
+        T.data_ptr(), Zt.data_ptr(), st.data_ptr(), B, n, m, kw, budget,
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    if err or clk.torcwa_aed_clocks(buf):
+        raise RuntimeError(f'probed schur_qr_baed n={n}: launch failed')
+    v = dict(zip(AED_CLK_SLOTS, buf))
+    p, r, w = max(v['passes'], 1), max(v['rotations'], 1), max(v['sweeps'], 1)
+    return dict(passes=v['passes'], rotations=v['rotations'],
+                sweeps=v['sweeps'], sweeps_kernel=st[:, 1].tolist(),
+                per_pass={k: v[k] / p for k in ('total', 'qr', 'after')},
+                per_sweep={'scan': v['scan'] / w},
+                per_rotation={k: v[k] / r for k in ('form', 'rows', 'barrier',
+                                                      'cols')},
+                loop_per_matrix={k: v[k] / B for k in (
+                    'loop', 'aed_phase', 'transform', 'chase',
+                    'loop_sweeps')})
 
 
 def one(label, no_fma):
@@ -398,6 +576,131 @@ def one_gates(label):
         sys.exit(1)
 
 
+# phase 14's 10-degree batches: B = 8 at n = 338, 450, 578
+BATCHED_CASES = CASES[1:]
+
+
+def one_schur_qr_packed(label, no_fma):
+    """--stage schur_qr_packed in the checkout that is the working
+    directory."""
+    sys.path.insert(0, os.getcwd())
+    import torch
+    import chip_smoke as cs
+    import torcwa_tpu_torch as tp
+    from torcwa_tpu_torch.ops import (_build, eig_kernels as ek, eig_qr as eq,
+                                      schur_qr_packed as sp)
+    dev = torch.device('cuda', 0)
+    lib = _alone_library(_build, 'schur_qr_packed.cu',
+                         ('torcwa_schur_qr_packed_f32',)) if no_fma else None
+    out = dict(dir=label, card=cs.smi_line(), stage='schur_qr_packed',
+               fmad=not no_fma, stats={}, ms={}, schur_qr_ms={}, quality={},
+               eig_ms={}, library_ms={})
+    for inc_name, order, inc_deg in BATCHED_CASES:
+        _, A = cs.wave_matrices(torch, tp, (order, order), cs.LAMS,
+                                math.radians(inc_deg), torch.float32, dev)
+        A = A.contiguous()
+        H, Q = ek.hessenberg(A)
+        B, n = H.shape[0], H.shape[-1]
+        key = f'n={n}'
+        if no_fma:
+            Hp, Ztp = sp.pack_planar(H), sp.pack_planar(Q.mT)
+            st = torch.zeros(B, 3, dtype=torch.int32, device=dev)
+            err = lib.torcwa_schur_qr_packed_f32(
+                Hp.data_ptr(), Ztp.data_ptr(), st.data_ptr(), B, n,
+                sp.padded(n), ek.MAX_ITER_FACTOR * n,
+                torch.cuda.current_stream().cuda_stream)
+            torch.cuda.synchronize()
+            if err:
+                raise RuntimeError(f'{key}: launch failed ({err})')
+            out['stats'][key] = st.tolist()
+            continue
+        T, Z, st = sp.schur_qr_packed(H, Q, return_stats=True)
+        out['stats'][key] = torch.stack(st, 1).tolist()
+        q = [cs.schur_quality(torch, A[b], T[b], Z[b]) for b in range(B)]
+        out['quality'][key] = dict(residual=max(x[0] for x in q),
+                                   unitarity=max(x[1] for x in q),
+                                   triangular=all(x[2] for x in q))
+        out['ms'][key] = cs.cuda_ms(torch, lambda: sp.schur_qr_packed(H, Q),
+                                    reps=3)
+        out['schur_qr_ms'][key] = cs.cuda_ms(torch, lambda: ek.schur_qr(H, Q),
+                                             reps=3)
+        out['eig_ms'][key] = {
+            k: cs.cuda_ms(torch, lambda f=f: eq.eig_small(A, f), reps=3)
+            for k, f in (('schur_qr', ek.schur_qr),
+                         ('schur_qr_packed', sp.schur_qr_packed))}
+        out['library_ms'][key] = cs.cuda_ms(
+            torch, lambda: torch.linalg.eig(A), reps=1)
+        print(json.dumps(dict(out, partial=True)), flush=True)
+    print(json.dumps(out), flush=True)
+
+
+def one_schur_qr_baed(label, no_fma):
+    """--stage schur_qr_baed in the checkout that is the working
+    directory."""
+    sys.path.insert(0, os.getcwd())
+    import torch
+    import chip_smoke as cs
+    import torcwa_tpu_torch as tp
+    from torcwa_tpu_torch.ops import (_build, eig_kernels as ek, eig_qr as eq,
+                                      schur_qr_baed as sb)
+    from torcwa_tpu_torch.ops.schur_ms import AED_KW, max_sweeps
+    dev = torch.device('cuda', 0)
+    entry = ('torcwa_schur_qr_baed_c64',)
+    if no_fma:
+        lib = _alone_library(_build, 'schur_qr_baed.cu', entry)
+    else:
+        src = _build.BUILD_ROOT / 'qr_compare_probed'
+        flags = probed_sources(_build.CSRC, src)
+        clk = _alone_library(_build, 'schur_qr_baed.cu',
+                             entry + ('torcwa_aed_clocks',), flags, src)
+    out = dict(dir=label, card=cs.smi_line(), stage='schur_qr_baed',
+               fmad=not no_fma, stats={}, ms={}, schur_qr_ms={}, kernel={},
+               aed_cycles={}, eig_ms={}, library_ms={})
+    stream = torch.cuda.current_stream().cuda_stream
+    for inc_name, order, inc_deg in BATCHED_CASES:
+        _, A = cs.wave_matrices(torch, tp, (order, order), cs.LAMS,
+                                math.radians(inc_deg), torch.float32, dev)
+        A = A.contiguous()
+        H, Q = ek.hessenberg(A)
+        n = H.shape[-1]
+        for m in (8, 16):
+            key = f'n={n} m={m}'
+            if no_fma:
+                T, Zt = H.clone(), Q.mT.contiguous()
+                st = torch.zeros(H.shape[0], 5, dtype=torch.int64, device=dev)
+                err = lib.torcwa_schur_qr_baed_c64(
+                    T.data_ptr(), Zt.data_ptr(), st.data_ptr(), H.shape[0], n,
+                    m, AED_KW, max_sweeps(n, m, 40), stream)
+                torch.cuda.synchronize()
+                if err:
+                    raise RuntimeError(f'{key}: launch failed ({err})')
+                out['stats'][key] = st.tolist()
+                continue
+            st = sb.schur_qr_baed(H, Q, m=m, return_stats=True)[2]
+            out['stats'][key] = torch.stack(st, 1).tolist()
+            if hasattr(sb, 'schur_qr_baed_cluster_info'):
+                out['kernel'][key] = sb.schur_qr_baed_cluster_info(n, m)
+            for B in (1, 2, 4, 8):
+                Hb, Qb = H[:B].contiguous(), Q[:B].contiguous()
+                out['ms'][f'B={B} {key}'] = cs.cuda_ms(
+                    torch, lambda: sb.schur_qr_baed(Hb, Qb, m=m), reps=3)
+                if m == 8:
+                    out['schur_qr_ms'][f'B={B} n={n}'] = cs.cuda_ms(
+                        torch, lambda: ek.schur_qr(Hb, Qb), reps=3)
+        if no_fma:
+            continue
+        out['aed_cycles'][f'n={n}'] = aed_cycles(
+            torch, clk, H, Q, 8, AED_KW, max_sweeps(n, 8, 40))
+        out['eig_ms'][f'n={n}'] = {
+            k: cs.cuda_ms(torch, lambda f=f: eq.eig_small(A, f), reps=3)
+            for k, f in (('schur_qr', ek.schur_qr),
+                         ('schur_qr_baed', sb.schur_qr_baed))}
+        out['library_ms'][f'n={n}'] = cs.cuda_ms(
+            torch, lambda: torch.linalg.eig(A), reps=1)
+        print(json.dumps(dict(out, partial=True)), flush=True)
+    print(json.dumps(out), flush=True)
+
+
 def main(args):
     import torch
     if not torch.cuda.is_available():
@@ -422,7 +725,8 @@ def main(args):
 
 
 STAGES = ('schur_qr', 'hessenberg', 'tri_vectors', 'schur_qr_ms',
-          'tri_vectors_blocked', 'unitarity', 'gates')
+          'tri_vectors_blocked', 'schur_qr_packed', 'schur_qr_baed',
+          'unitarity', 'gates')
 
 if __name__ == '__main__':
     if sys.argv[1:2] == ['--one']:
@@ -435,6 +739,10 @@ if __name__ == '__main__':
             one_schur_qr_ms(label)
         elif stage == 'tri_vectors_blocked':
             one_tri_vectors_blocked(label)
+        elif stage == 'schur_qr_packed':
+            one_schur_qr_packed(label, '--fmad=false' in sys.argv[4:])
+        elif stage == 'schur_qr_baed':
+            one_schur_qr_baed(label, '--fmad=false' in sys.argv[4:])
         elif stage == 'unitarity':
             one_unitarity(label)
         elif stage == 'gates':

@@ -34,9 +34,10 @@ def dev():
     return torch.device('cuda', 0)
 
 
-def _rand(dev, seed=0, n=N):
+def _rand(dev, seed=0, n=N, lanes=B):
     rng = np.random.default_rng(seed)
-    a = rng.standard_normal((B, n, n)) + 1j * rng.standard_normal((B, n, n))
+    a = rng.standard_normal((lanes, n, n)) \
+        + 1j * rng.standard_normal((lanes, n, n))
     return torch.as_tensor(a.astype(np.complex64), device=dev)
 
 
@@ -512,12 +513,25 @@ def _batch_checks(A, T, Z):
     assert float((Z.mH @ Z - eye).abs().max()) <= 1e-5
 
 
-@pytest.mark.parametrize('n,m,kw', [(48, 4, 32), (80, 8, 64)])
-def test_schur_qr_baed_kernel_matches_plain(dev, n, m, kw):
+@pytest.mark.parametrize('n,m,kw,lanes,budget', [
+    (48, 4, 32, B, None), (80, 8, 64, B, None), (74, 8, 64, B, None),
+    (392, 8, 64, B, 1), (393, 8, 64, 1, 1), (450, 16, 64, 8, 1),
+    (553, 8, 64, B, 1), (554, 8, 64, B, 1)])
+def test_schur_qr_baed_kernel_matches_plain(dev, n, m, kw, lanes, budget):
     # n = 48 with kw = 32: the active block is shorter than the AED window
-    # from the second sweep on; n = 80 with kw = 64: the default window.  One
-    # launch for the batch, each matrix with its own sweep count
+    # from the second sweep on; n = 80 with kw = 64: the default window;
+    # n = 74 = kw + 10, the smallest n the wrapper takes.  One launch for the
+    # batch, each matrix with its own sweep count.  With a budget: each side
+    # of every switch of the C entry point at kw = 64 (clusters of 8 to
+    # n = 392, of 16 to 553, the one-block kernel above), one lane at
+    # n = 393, and eight at 450, more than the 7 clusters of 16 the card
+    # runs at once, which take the one-block kernel; the kernel in full
+    # against complex128 eigenvalues, and
+    # against the plain version after `budget` sweeps on the first lane
     from torcwa_tpu_torch.ops import schur_qr_baed as sb
+    if budget is not None:
+        _baed_budgeted(dev, sb, n, m, kw, lanes, budget)
+        return
     A = _rand(dev, 8, n)
     H, Q = ek.hessenberg_plain(A)
     T, Z, st = _launch('schur_qr_baed', sb.schur_qr_baed, H, Q, m=m, kw=kw,
@@ -542,9 +556,40 @@ def test_schur_qr_baed_kernel_matches_plain(dev, n, m, kw):
         sb.schur_qr_baed(H.mT, Q, m=m, kw=kw)           # not contiguous
 
 
-@pytest.mark.parametrize('n', [40, 33])
+def _baed_budgeted(dev, sb, n, m, kw, lanes, budget):
+    A = _rand(dev, 8, n, lanes)
+    H, Q = ek.hessenberg(A)
+    info = sb.schur_qr_baed_cluster_info(n, m, kw)
+    assert info['cluster'] == sb.schur_qr_baed_cluster(n, kw)
+    assert info['cluster'] == 0 or info['clusters_at_once'] >= 1
+    T, Z, st = _launch('schur_qr_baed', sb.schur_qr_baed, H, Q, m=m, kw=kw,
+                       return_stats=True)
+    assert bool((st[0] == 0).all()) and bool((st[3] > n // 2).all())
+    _batch_checks(A, T, Z)
+    w_ref = torch.linalg.eigvals(A.to(torch.complex128))
+    for b in range(lanes):
+        assert _sets_agree(torch.diagonal(T[b]).to(torch.complex128),
+                           w_ref[b])
+    # after the budget the diagonal is NaN by contract: the strict upper
+    # part of T, and Z; m = 8 bulges a sweep, as chip_smoke.py phase 14
+    # holds one sweep element by element (float32 round-off grows with the
+    # rotations a sweep applies)
+    T1, Z1, st1 = sb.schur_qr_baed(H[:1], Q[:1], kw=kw, max_iters=budget,
+                                   return_stats=True)
+    T1p, Z1p, st1p = sb.schur_qr_baed_plain(H[:1], Q[:1], kw=kw,
+                                            max_iters=budget,
+                                            return_stats=True)
+    a2 = float(torch.linalg.matrix_norm(A[0], ord=2))
+    assert float((torch.triu(T1, 1) - torch.triu(T1p, 1)).abs().max()) \
+        <= 1e-4 * a2
+    assert float((Z1 - Z1p).abs().max()) <= 1e-4
+    assert int(st1[1][0]) == budget == int(st1p[1][0])
+
+
+@pytest.mark.parametrize('n', [40, 33, 65])
 def test_schur_qr_packed_kernel_matches_plain(dev, n):
     # n = 40 and 33: the padding of a packed half is 24 and 31 floats wide;
+    # n = 65: the 32-row chase window's edge, a window of one row left;
     # one sweep is forward-stable on a random batch, so kernel and plain agree
     # element-wise there (1e-4 ||A||_2), and in full as eigenvalue sets
     from torcwa_tpu_torch.ops import schur_qr_packed as sp

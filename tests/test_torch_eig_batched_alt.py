@@ -443,3 +443,26 @@ def test_simulate_txx_through_each_stage_matches_jax(monkeypatch, name):
 def test_eig_qr_routing_is_unchanged():
     assert eq.LARGE_MIN_N == 512 and eq.SMALL_SCHUR is ek.schur_qr
     assert set(ek.LAUNCHES) >= {'schur_qr_baed', 'schur_qr_packed'}
+
+
+@pytest.mark.parametrize('kw', [64, 32])
+def test_schur_qr_baed_cluster_choice(kw):
+    # the mirror of csrc/schur_qr_baed.cu's choice: a cluster of 8 while a
+    # CTA's columns of H and the AED arrays fit its shared memory, then 16,
+    # then the one-block kernel (0); n alone decides at a given kw, and the
+    # last n of each size fills the room that the next n overflows
+    room = sb.SMEM_PER_BLOCK - sb.STATIC_RESERVE
+    ps = [sb.schur_qr_baed_cluster(n, kw) for n in range(kw + 10, 800)]
+    assert ps[0] == 8 and ps[-1] == 0
+    assert ps == sorted(ps, key=lambda p: {8: 0, 16: 1, 0: 2}[p])
+    for p in (8, 16):
+        last = kw + 10 + max(i for i, q in enumerate(ps) if q == p)
+        assert sb.cluster_smem_bytes(last, p, kw) <= room
+        assert sb.cluster_smem_bytes(last + 1, p, kw) > room
+    if kw == 64:
+        # the reach the kernel's source states, and phase 14's sizes
+        assert [sb.schur_qr_baed_cluster(n) for n in
+                (338, 392, 393, 450, 553, 554, 578)] == [8, 8, 16, 16, 16, 0,
+                                                         0]
+        # the AED arrays of csrc/aed_warp.cuh: 68,632 bytes at kw = 64
+        assert sb.cluster_smem_bytes(1, 8, 64) - 16 == 68632 + 8

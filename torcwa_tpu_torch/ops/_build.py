@@ -39,6 +39,7 @@ _SIGNATURES = {
     'torcwa_schur_qr_ms_c64': [_P, _P, _P, _I, _I, _I, _P],
     'torcwa_schur_qr_ms_cluster_info': [_I, _I, _P],
     'torcwa_schur_qr_baed_c64': [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    'torcwa_schur_qr_baed_cluster_info': [_I, _I, _I, _P],
     'torcwa_schur_qr_packed_f32': [_P, _P, _P, _I, _I, _I, _I, _P],
     'torcwa_tri_vectors_c64': [_P, _P, _P, _P, _I, _I, _P],
     'torcwa_tri_vectors_slots': [_I],

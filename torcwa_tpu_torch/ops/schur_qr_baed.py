@@ -14,8 +14,12 @@ the eigenvalues are NaN.  The same contract as ``eig_kernels.schur_qr``, so
 the stage enters ``eig_qr.eig_small(A3, stage)`` or ``eig_qr.SMALL_SCHUR``.
 
 :func:`schur_qr_baed` launches ``csrc/schur_qr_baed.cu`` once for a CUDA
-batch (complex64 only; one thread block per matrix, the sweep loop on the
-device) and raises for what the kernel does not take; a CPU batch goes
+batch (complex64 only; the sweep loop on the device: a thread-block cluster
+of :func:`schur_qr_baed_cluster` CTAs per matrix where H and the AED arrays
+fit its shared memory and the batch runs in one wave of clusters, one thread
+block per matrix otherwise; the AED window's Schur form chased by one warp)
+and raises for what the kernel does not
+take; a CPU batch goes
 through :func:`schur_qr_baed_plain`, the same sweeps lane by lane from the
 plain parts of ``schur_ms.py`` (``band_scan_plain``, ``aed_plain``,
 ``chase_plain``), in the input's precision.  Beside ``schur_ms`` (one matrix,
@@ -26,17 +30,56 @@ is done, every matrix here ends with its own last sweep, so ``sweeps`` is
 counted per matrix.
 """
 
+import ctypes
+
 import torch
 
 from . import _build
 from .eig_kernels import LAUNCHES, _check, _poison, _raise_on, _stream
 from .schur_ms import (AED_KW, EXC_STALL, aed_plain, band_scan_plain,
                        chase_plain, max_sweeps)
+from .schur_qr_ms import (CLUSTER, CLUSTER_WIDE, SMEM_PER_BLOCK,
+                          STATIC_RESERVE)
 
-__all__ = ['schur_qr_baed', 'schur_qr_baed_plain', 'MAX_M', 'MAX_KW']
+__all__ = ['schur_qr_baed', 'schur_qr_baed_plain', 'schur_qr_baed_cluster',
+           'schur_qr_baed_cluster_info', 'MAX_M', 'MAX_KW']
 
 # limits compiled into csrc/ms_shifts.cuh and csrc/ms_aed.cuh
 MAX_M, MAX_KW = 64, 64
+
+
+def cluster_smem_bytes(n, p, kw):
+    """Dynamic shared memory of one CTA of the cluster kernel
+    (csrc/baed_cluster.cuh): its ceil(n / P) columns of H at a leading
+    dimension n | 1, the AED arrays of csrc/aed_warp.cuh (2 (kw + 1)^2 +
+    2 kw + 1 complex64) and n flags padded to 16 bytes."""
+    cols = -(-n // p) * (n | 1)
+    return 8 * (cols + 2 * (kw + 1) ** 2 + 2 * kw + 1) + (n + 15) // 16 * 16
+
+
+def schur_qr_baed_cluster(n, kw=AED_KW):
+    """The cluster size the C entry point launches at (n, kw) for a batch
+    that runs in one wave of clusters: 8 where a CTA's share fits its
+    shared memory (n <= 392 at kw = 64), else 16 (n <= 553), else 0, the
+    one-block kernel.  m does not enter.  A batch of more matrices than the
+    card runs clusters at once (:func:`schur_qr_baed_cluster_info`) takes
+    the one-block kernel: a second wave would double the time."""
+    room = SMEM_PER_BLOCK - STATIC_RESERVE
+    for p in (CLUSTER, CLUSTER_WIDE):
+        if cluster_smem_bytes(n, p, kw) <= room:
+            return p
+    return 0
+
+
+def schur_qr_baed_cluster_info(n, m=8, kw=AED_KW):
+    """The same choice as the C entry point reports it on the card:
+    dict(cluster, smem_bytes, clusters_at_once); cluster 0 for the
+    one-block kernel (clusters_at_once 0).  A batch of B matrices runs on
+    the clusters where B <= clusters_at_once."""
+    out = (ctypes.c_int * 3)()
+    _raise_on('schur_qr_baed_cluster_info',
+              _build.load().torcwa_schur_qr_baed_cluster_info(n, m, kw, out))
+    return dict(cluster=out[0], smem_bytes=out[1], clusters_at_once=out[2])
 
 
 def _check_args(H, Q, m, kw):
