@@ -132,8 +132,7 @@ Phases (each prints its results; any failure exits non-zero):
      to 1250, both routes): TRR + TLR + TRL + TLL <= 1 + 1e-4, order 12
      against the complex128 oracle; Example 3 at order (20, 20) at two
      points of the 11 x 11 grid in one batch, its eig stages timed with
-     utils.StageTimer, mfu_report beside measured_gemm_peak(2048), one point
-     against the oracle; the small route's kernels against their plain
+     utils.StageTimer, one point against the oracle; the small route's kernels against their plain
      versions at n = 2 and 98 (the large route's at n = 722 and 1250:
      qr_compare.py --stage gates)
 The line before the last is the kernels' JSON record, the last line
@@ -2853,8 +2852,7 @@ def multilayer_and_grid_phase(torch, tp, ek, smi, dev, out):
     """Phase 21: Example 1-1 (three patterned layers a solve) at orders 0,
     3, 6, 9 and 12, and Example 3 at order 20 at two points of the 11 x 11
     grid, its stages timed with utils.StageTimer."""
-    from torcwa_tpu_torch.utils import (StageTimer, measured_gemm_peak,
-                                        mfu_report)
+    from torcwa_tpu_torch.utils import StageTimer
     t0 = time.perf_counter()
     ex11 = load_example('example1_1_multilayer')
     mats = {}
@@ -2899,17 +2897,12 @@ def multilayer_and_grid_phase(torch, tp, ek, smi, dev, out):
     t3o = ex3.t00_of_wxwy(pts[1:, 0], pts[1:, 1], o20, device=dev,
                           dtype=torch.float64, eig_backend='torch')
     d3 = float((t3[1:].abs() ** 2 - t3o.abs() ** 2).abs().max())
-    peak = measured_gemm_peak(2048)
     print(f'  example3 order 20 at (Wx, Wy) {pts.tolist()}: |t|^2 '
           f'{(t3.abs() ** 2).tolist()}; at {pts[1].tolist()} vs the '
           f'complex128 oracle {d3:.2e}')
     print(f'  its eig forward {whole.totals["eig"]:.3f} s, its stages '
           f'(StageTimer, two lanes):\n    ' +
           stages.report().replace('\n', '\n    '))
-    print(f'  measured_gemm_peak(2048) {peak:.3f} TFLOP/s [{smi}]; one lane:')
-    per = {k: v / stages.counts[k] for k, v in stages.totals.items()}
-    for line in mfu_report(per, n20, peak):
-        print('    ' + line)
     check(d3 <= 1e-4, f'example3 order 20: |t|^2 vs oracle {d3:.2e} <= 1e-4')
     t2 = time.perf_counter()
     # the large route's new sizes here, n = 722 and 1250, are held by

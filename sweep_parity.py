@@ -14,9 +14,8 @@ ex3   Example 3 at order (20, 20) (2N = 3362), the 11 x 11 (Wx, Wy) grid,
 Each run prints its s/solve (host clock around the sweep, the results
 read back), the stage split of the eig (``utils.StageTimer`` over each
 stage of the eig routes: hess, qr, vec, refine; and the whole eig
-forward), ``mfu_report`` of the stages beside ``measured_gemm_peak(2048)``,
-the peak device memory above what was held before it, and the card's name
-and power limit; the two backends' results are compared (|t|^2, and
+forward), the peak device memory above what was held before it, and the
+card's name and power limit; the two backends' results are compared (|t|^2, and
 Example 1-1's TRR + TLR + TRL + TLL <= 1 + 1e-4).  The first batch of each
 run is solved once before the clock starts (the kernels' first launches).
 Needs no JAX and no network; allow ~40 minutes for all three.
@@ -58,15 +57,6 @@ def timed(torch, label, backend, fn, n_solves, reports=True):
     return out, dt / n_solves, stages, whole, peak
 
 
-def mfu(stages, n, peak):
-    """mfu_report of one matrix's stage times (each stage's total over its
-    calls: one call a lane on the large route)."""
-    from torcwa_tpu_torch.utils import mfu_report
-    per = {k: v / stages.counts[k] for k, v in stages.totals.items()}
-    for line in mfu_report(per, n, peak):
-        print('    ' + line)
-
-
 def versus_library(T, res):
     """|t|^2 and s/solve through the kernels beside the library's."""
     dT = np.abs(T['kernels'] - T['torch']).max()
@@ -75,7 +65,7 @@ def versus_library(T, res):
           f'{res["kernels"][1] / res["torch"][1]:.2f}x of it')
 
 
-def ex1(torch, dev, peak):
+def ex1(torch, dev):
     ex = cs.load_example('example1_wavelength_sweep')
     order, lams = (15, 15), np.linspace(400., 700., 61)
     n = 2 * (2 * order[0] + 1) ** 2
@@ -90,14 +80,12 @@ def ex1(torch, dev, peak):
             torch, 'Example 1', backend,
             lambda: ex.sweep(freqs, geom, order, backend, ex.CHUNK),
             len(lams))
-        if backend == 'kernels':
-            mfu(res[backend][2], n, peak)
     T = {k: v[0] for k, v in res.items()}
     print(f'  |t_xx|^2 kernels {np.round(T["kernels"], 5).tolist()}')
     versus_library(T, res)
 
 
-def ex11(torch, dev, peak):
+def ex11(torch, dev):
     ex = cs.load_example('example1_1_multilayer')
     sums = {}
     for backend in BACKENDS:
@@ -126,7 +114,7 @@ def ex11(torch, dev, peak):
           f'({"<=" if worst <= 1 + 1e-4 else ">"} 1 + 1e-4)')
 
 
-def ex3(torch, dev, peak):
+def ex3(torch, dev):
     ex = cs.load_example('example3_parameter_sweep')
     order, nw = (20, 20), 11
     n = 2 * (2 * order[0] + 1) ** 2
@@ -141,8 +129,6 @@ def ex3(torch, dev, peak):
             torch, 'Example 3', backend,
             lambda: ex.sweep(pts, ex.CHUNK, eig_backend=backend, **kw),
             len(pts))
-        if backend == 'kernels':
-            mfu(res[backend][2], n, peak)
     T = {k: np.abs(v[0]) ** 2 for k, v in res.items()}
     print('  |t00|^2 over the grid (kernels):')
     print(np.round(T['kernels'].reshape(nw, nw), 4))
@@ -155,18 +141,14 @@ def main():
         print('sweep_parity: CUDA is not available', file=sys.stderr)
         return 2
     from torcwa_tpu_torch.ops import _build
-    from torcwa_tpu_torch.utils import measured_gemm_peak
     dev = torch.device('cuda', 0)
     runs = {'ex1': ex1, 'ex11': ex11, 'ex3': ex3}
     which = sys.argv[1:] or list(runs)
     print(f'card: {cs.smi_line()}; torch {torch.__version__}')
     _build.load()
-    peak = measured_gemm_peak(2048)
-    print(f'measured_gemm_peak(2048) {peak:.3f} TFLOP/s (complex64, IEEE '
-          f'f32) [{cs.smi_line()}]')
     for k in which:
         cs.phase(k)
-        runs[k](torch, dev, peak)
+        runs[k](torch, dev)
     return 0
 
 

@@ -1026,10 +1026,3 @@ def test_shard_sweep_on_the_card_twice(dev):
     torch.testing.assert_close(got['t'], torch.sin(3. * xs) * xs, rtol=1e-6,
                                atol=0.)
 
-
-def test_measured_gemm_peak_on_the_card(dev):
-    # complex64 in IEEE f32: above 0 and at most 1.05 x 67 TFLOP/s, the
-    # card's float32 rate outside the tensor cores
-    from torcwa_tpu_torch.utils import measured_gemm_peak
-    peak = measured_gemm_peak(2048)
-    assert 0 < peak <= 1.05 * 67.

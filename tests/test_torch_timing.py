@@ -1,11 +1,9 @@
 """The port's ``utils.timing`` against ``torcwa_tpu.utils.timing`` on the
-CPU: the nominal FLOP model, the MFU lines character for character,
-``StageTimer``'s counts and report, and ``measured_gemm_peak`` on the CPU.
+CPU: the nominal FLOP model and ``StageTimer``'s counts and report.
 """
 
 import time
 
-import numpy as np
 import pytest
 
 torch = pytest.importorskip('torch')
@@ -22,17 +20,6 @@ def test_eig_stage_flops_match_jax(n):
     assert pt.eig_stage_flops(n) == jt.eig_stage_flops(n)
 
 
-@pytest.mark.parametrize('peak', [52.7, 0.])
-def test_mfu_report_matches_jax_line_for_line(peak):
-    # stages outside the model ('refine') and non-positive times are
-    # skipped by both; a zero peak prints 0 %
-    times = {'hess': 1.2345, 'qr': 0.5, 'vec': 0.0123, 'refine': 0.04,
-             'eig': 0.}
-    got = pt.mfu_report(times, 1922, peak)
-    assert got == jt.mfu_report(times, 1922, peak)
-    assert len(got) == 3 and got[0].startswith('hess ')
-
-
 def test_stage_timer_counts_and_report():
     t, tj = pt.StageTimer(), jt.StageTimer()
     for timer in (t, tj):
@@ -43,6 +30,9 @@ def test_stage_timer_counts_and_report():
             time.sleep(0.01)
     assert t.counts == tj.counts == {'conv': 3, 'eig': 1}
     assert t.totals['eig'] >= 0.01 and t.totals['conv'] >= 0.006
+    # the order by time on totals set here, as a sleep may overrun by more
+    # than the gap between the stages on a loaded host
+    t.totals = {'conv': 0.0061, 'eig': 0.0123}
     lines = t.report().splitlines()
     assert lines[0] == tj.report().splitlines()[0]
     # stages by time, longest first, each with its calls and share
@@ -60,7 +50,3 @@ def test_stage_timer_counts_and_report():
     assert t.totals == {} and t.counts == {}
     assert tu.StageTimer is pt.StageTimer
 
-
-def test_measured_gemm_peak_on_the_cpu():
-    peak = pt.measured_gemm_peak(64, reps=1, device='cpu')
-    assert np.isfinite(peak) and peak > 0

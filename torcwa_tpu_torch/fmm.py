@@ -31,6 +31,7 @@ from .core import (bdp_apply, bdp_dense, bdp_inv, conv_to_grid,
                    redheffer_product, redheffer_update_modes, vmat)
 from .ops.cplx import csqrt
 from .ops.fourier import material_conv
+from .utils import timing
 
 __all__ = ['StackSpec', 'kvectors_real', 'pq_pair', 'layer_smatrix_pair',
            'solve_stack_pair', 'redheffer_pair', 'sparam_xy_pair',
@@ -135,6 +136,7 @@ def _layer_smatrix_tail_nomodes(P, E, kz, Vf_inv, omega, thickness, Q=None,
     return S11, S21, H, instability
 
 
+@timing.spanned('fmm.layer')
 def _layer_smatrix_body(eps_conv, kx, ky, Vf_inv, omega, thickness,
                         broadening, backend, mu_conv=None, need_modes=True,
                         avoid_pinv=False, max_pinv=0.005):
@@ -196,6 +198,7 @@ def redheffer_pair(Sm, Sn):
     return redheffer_product(Sm, Sn)[0]
 
 
+@timing.spanned('fmm.fold')
 def _fold(Ss, Cs, Sin, Sout):
     """Global S-matrix of the layers' [S11, S21, S12, S22] (stack order)
     and the claddings' by Redheffer star products (reference
@@ -222,6 +225,7 @@ def _fold(Ss, Cs, Sin, Sout):
 
 
 @pinned
+@timing.spanned('fmm.solve')
 def solve_stack_pair(spec, freq, inc_ang, azi_ang, eps_grids, thicknesses,
                      eps_in=None, eps_out=None, broadening='auto',
                      eig_backend='kernels', mu_grids=None, eps_scalars=None,
@@ -430,6 +434,7 @@ def _cladding(v, like):
     return torch.as_tensor(v, dtype=like.dtype, device=like.device)
 
 
+@timing.spanned('fmm.sparam')
 def sparam_xy_pair(S, kx, ky, eps_in, eps_out, order, orders, ref_order,
                    polarization='xx', direction='forward',
                    port='transmission', evanescent=1e-3, mu_in=None,

@@ -22,6 +22,8 @@ import subprocess
 import time
 from pathlib import Path
 
+from ..utils import timing
+
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / 'csrc'
 BUILD_ROOT = _PKG.parent / 'build' / 'torch_kernels'
@@ -125,10 +127,13 @@ def load():
     """The loaded kernel library, built on first use."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+        with timing.span('kernels.load') as sp:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            if sp is not None:
+                sp.meta['cached'] = build_info['cached']
         _lib = lib
     return _lib

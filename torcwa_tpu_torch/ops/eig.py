@@ -21,6 +21,7 @@ a test oracle only).
 import torch
 
 from .._constants import f32_pinned, pinned
+from ..utils import timing
 from .eig_qr import eig_qr
 
 __all__ = ['eig', 'eig_backward', 'Eig']
@@ -74,7 +75,7 @@ class _EigFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gw, gV):
         w, V = ctx.saved_tensors
-        with f32_pinned():
+        with f32_pinned(), timing.span('eig.backward'):
             return eig_backward(w, V, gw, gV, ctx.broadening), None, None
 
 

@@ -27,6 +27,7 @@ import ctypes
 
 import torch
 
+from ..utils import timing
 from . import _build
 
 __all__ = ['hessenberg', 'hessenberg_cluster', 'hessenberg_cluster_info',
@@ -200,6 +201,7 @@ def hessenberg_plain(A, cluster=None):
     return H.masked_fill(below, 0), Q
 
 
+@timing.spanned('eig.hess')
 def hessenberg(A):
     """Batched Hessenberg reduction: (B, n, n) complex -> (H, Q).
 
@@ -514,14 +516,20 @@ def schur_qr(H, Q, max_iter_factor=MAX_ITER_FACTOR, return_stats=False,
     """
     if max_iters is None:
         max_iters = max_iter_factor * H.shape[-1]
-    if _check('schur_qr', H, Q):
-        T, Z, st = _single_shift_kernel('schur_qr', 'torcwa_schur_qr_c64',
-                                        H, Q, max_iters)
-    else:
-        T, Z, hi, sweeps, rot = _single_shift_sweeps(H, Q, max_iters,
-                                                     **ACC_RULES)
-        st = (hi, sweeps, rot)
-    T = _poison(T, st[0])
+    with timing.span('eig.schur') as sp:
+        if _check('schur_qr', H, Q):
+            T, Z, st = _single_shift_kernel('schur_qr',
+                                            'torcwa_schur_qr_c64', H, Q,
+                                            max_iters)
+        else:
+            T, Z, hi, sweeps, rot = _single_shift_sweeps(H, Q, max_iters,
+                                                         **ACC_RULES)
+            st = (hi, sweeps, rot)
+        T = _poison(T, st[0])
+        if sp is not None:
+            # summed where the stats lie; the recorder reads it back later
+            sp.count('sweeps', st[1].sum())
+            sp.count('matrices', H.shape[0])
     if return_stats:
         return T, Z, st
     return T, Z

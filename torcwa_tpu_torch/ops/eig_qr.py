@@ -32,6 +32,7 @@ TPU's VMEM-driven ``_HBM_MIN_N_SINGLE``.
 import torch
 
 from .._constants import f32_pinned
+from ..utils import timing
 from .eig_kernels import hessenberg, schur_qr, tri_vectors
 from .hess_blocked import hessenberg_blocked
 from .schur_ms import schur_ms
@@ -101,15 +102,17 @@ def _eig_large(A):
     H, Q = hessenberg_blocked(A)
     T, Z = schur_ms(H, Q, m=large_shifts(A.shape[-1]),
                     defl_mult=LARGE_DEFL_MULT)
-    return torch.diagonal(T), Z @ tri_vectors_blocked(T)
+    with timing.span('eig.vectors'):
+        return torch.diagonal(T), Z @ tri_vectors_blocked(T)
 
 
 def _finish(A3, w, V):
     """Unit-norm columns and the refinement steps."""
     nrm = torch.linalg.vector_norm(V, dim=-2, keepdim=True)
     V = V / torch.where(nrm > 0, nrm, torch.ones_like(nrm))
-    for _ in range(REFINE[0]):
-        w, V = _refine(A3, w, V, REFINE[1])
+    with timing.span('eig.refine'):
+        for _ in range(REFINE[0]):
+            w, V = _refine(A3, w, V, REFINE[1])
     return w, V
 
 
@@ -130,7 +133,9 @@ def eig_small(A3, schur=None):
     H, Q = hessenberg(A3)
     T, Z = (SMALL_SCHUR if schur is None else schur)(H, Q)
     w = torch.diagonal(T, dim1=-2, dim2=-1)
-    return _finish(A3, w, Z @ tri_vectors(T))
+    with timing.span('eig.vectors'):
+        V = Z @ tri_vectors(T)
+    return _finish(A3, w, V)
 
 
 def eig_qr(A):
@@ -142,8 +147,10 @@ def eig_qr(A):
     n = A.shape[-1]
     batch = A.shape[:-2]
     A3 = A.reshape(-1, n, n).contiguous()
-    with f32_pinned():
-        if n >= LARGE_MIN_N:
+    large = n >= LARGE_MIN_N
+    with f32_pinned(), timing.span('eig', n=n, batch=A3.shape[0],
+                                   route='large' if large else 'small'):
+        if large:
             lanes = [_eig_large(a) for a in A3]
             w, V = _finish(A3, torch.stack([l[0] for l in lanes]),
                            torch.stack([l[1] for l in lanes]))

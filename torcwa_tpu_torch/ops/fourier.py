@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from .._constants import complex_dtype_of
+from ..utils import timing
 
 __all__ = ['order_vectors', 'material_conv']
 
@@ -24,6 +25,7 @@ def order_vectors(order):
     return ox.reshape(-1), oy.reshape(-1)
 
 
+@timing.spanned('fmm.conv')
 def material_conv(grid, order, dtype=None):
     """Convolution matrix of a material raster.
 

@@ -21,10 +21,14 @@ is that of ``eig_kernels.hessenberg_plain``.
 What bounds it on an H100: the per-column GEMV streams the trailing block
 from device memory (~n^3/6 elements in all, v being zero above its head),
 and each column issues some thirty small launches, so at n = 3362 the
-host's launch rate, not the card, sets the time.
+host's launch rate, not the card, sets the time.  A panel's column loop and
+its end-of-panel update are the spans ``eig.hess.columns`` and
+``eig.hess.update`` (``utils.timing``), so a trace tells the two apart.
 """
 
 import torch
+
+from ..utils import timing
 
 __all__ = ['hessenberg_blocked']
 
@@ -40,37 +44,39 @@ def _panel(A, Q, k0, p):
     Y = A.new_zeros(t, p)
     T = A.new_zeros(p, p)
     one = torch.ones((), dtype=A.real.dtype, device=A.device)
-    for jj in range(cols):
-        Vj, Yj, Tj = V[:, :jj], Y[:, :jj], T[:jj, :jj]
-        u = At[:, jj] - Yj @ (Tj @ V[jj, :jj].conj())
-        c = u - Vj @ (Tj.mH @ (Vj.mH @ u))
-        # Householder from the local rows > jj of c: v = x + phase(x_0)
-        # ||x|| e_1, so ||v||^2 = 2 ||x|| (||x|| + |x_0|); a division by
-        # zero lands in the branch that torch.where discards
-        x = c[jj + 1:]
-        alpha = x[0]
-        xnorm = torch.linalg.vector_norm(x)
-        aabs = alpha.abs()
-        ph = torch.where(aabs > 0, alpha / aabs, one)
-        v = x.clone()
-        v[0] += ph * xnorm
-        vnorm2 = 2. * xnorm * (xnorm + aabs)
-        beta = torch.where(vnorm2 > 0, 2. / vnorm2, 0.)
-        T[:jj, jj] = -beta * (Tj @ (V[jj + 1:, :jj].mH @ v))
-        T[jj, jj] = beta
-        # v is zero above its head: the GEMV reads columns > jj only
-        Y[:, jj] = At[:, jj + 1:] @ v
-        V[jj + 1:, jj] = v
-    TVh = T @ V.mH                                          # (p, t)
-    M1 = At - Y @ TVh
-    A[k0:, k0:] = M1 - V @ (T.mH @ (V.mH @ M1))
-    if k0:
-        Atop = A[:k0, k0:]
-        A[:k0, k0:] = Atop - (Atop @ V) @ TVh
-    Qc = Q[:, k0:]
-    Q[:, k0:] = Qc - (Qc @ V) @ TVh
+    with timing.span('eig.hess.columns'):
+        for jj in range(cols):
+            Vj, Yj, Tj = V[:, :jj], Y[:, :jj], T[:jj, :jj]
+            u = At[:, jj] - Yj @ (Tj @ V[jj, :jj].conj())
+            c = u - Vj @ (Tj.mH @ (Vj.mH @ u))
+            # Householder from the local rows > jj of c: v = x + phase(x_0)
+            # ||x|| e_1, so ||v||^2 = 2 ||x|| (||x|| + |x_0|); a division by
+            # zero lands in the branch that torch.where discards
+            x = c[jj + 1:]
+            alpha = x[0]
+            xnorm = torch.linalg.vector_norm(x)
+            aabs = alpha.abs()
+            ph = torch.where(aabs > 0, alpha / aabs, one)
+            v = x.clone()
+            v[0] += ph * xnorm
+            vnorm2 = 2. * xnorm * (xnorm + aabs)
+            beta = torch.where(vnorm2 > 0, 2. / vnorm2, 0.)
+            T[:jj, jj] = -beta * (Tj @ (V[jj + 1:, :jj].mH @ v))
+            T[jj, jj] = beta
+            # v is zero above its head: the GEMV reads columns > jj only
+            Y[:, jj] = At[:, jj + 1:] @ v
+            V[jj + 1:, jj] = v
+    with timing.span('eig.hess.update'):
+        TVh = T @ V.mH                                      # (p, t)
+        M1 = At - Y @ TVh
+        A[k0:, k0:] = M1 - V @ (T.mH @ (V.mH @ M1))
+        if k0:
+            Atop = A[:k0, k0:]
+            A[:k0, k0:] = Atop - (Atop @ V) @ TVh
+        Qc = Q[:, k0:]
+        Q[:, k0:] = Qc - (Qc @ V) @ TVh
 
-
+@timing.spanned('eig.hess')
 def hessenberg_blocked(A, panel=128):
     """(n, n) complex -> (H, Q) with A = Q H Q^H, H upper Hessenberg and
     Q unitary."""

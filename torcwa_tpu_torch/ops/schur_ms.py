@@ -32,6 +32,7 @@ k, k+1 from the left and G^H on columns k, k+1 from the right.
 
 import torch
 
+from ..utils import timing
 from . import _build
 from .eig_kernels import (LAUNCHES, _consts, _givens, _raise_on, _stream,
                           _wilkinson)
@@ -677,9 +678,13 @@ def schur_ms(H, Q, m=24, kw=AED_KW, wb=None, defl_mult=4.0,
     wb = window(m) if wb is None else wb
     _check_args(H, Q, m, kw, wb, aed)
     n = H.shape[-1]
-    H, Z = H.contiguous().clone(), Q.contiguous().clone()
-    if budget is None:
-        budget = max_sweeps(n, m, max_iter_factor)
-    stats = run_sweeps(H, Z, budget, False, m, kw, wb, defl_mult, nibble,
-                       aed)
-    return _finish(H, Z, stats, return_stats)
+    with timing.span('eig.schur') as sp:
+        H, Z = H.contiguous().clone(), Q.contiguous().clone()
+        if budget is None:
+            budget = max_sweeps(n, m, max_iter_factor)
+        stats = run_sweeps(H, Z, budget, False, m, kw, wb, defl_mult,
+                           nibble, aed)
+        if sp is not None:
+            sp.count('sweeps', stats[1])
+            sp.count('matrices', 1)
+        return _finish(H, Z, stats, return_stats)

@@ -19,6 +19,7 @@ import torch
 import torch.utils._pytree as pytree
 
 from ._constants import f32_pinned
+from .utils import timing
 
 __all__ = ['adam_init', 'adam_update', 'gaussian_blur', 'tanh_projection',
            'IterationRecord', 'maximize_adam']
@@ -68,12 +69,14 @@ class IterationRecord(NamedTuple):
     opt_state: object = None  # (m, v, step), for checkpoint and resume
 
 
+@timing.spanned('adam.value_and_grad')
 def _value_and_grad(fom_fn, params, extra):
     leaves, spec = pytree.tree_flatten(params)
     leaves = [x.detach().requires_grad_(True) for x in leaves]
     with torch.enable_grad():
         f = fom_fn(pytree.tree_unflatten(leaves, spec), *extra)
-        grads = torch.autograd.grad(f, leaves)
+        with timing.span('adam.backward'):
+            grads = torch.autograd.grad(f, leaves)
     return f.detach(), pytree.tree_unflatten(list(grads), spec)
 
 
@@ -109,17 +112,21 @@ def maximize_adam(fom_fn, params0, n_iters, *, lr=0.02, beta1=0.9,
     for _ in range(n_iters):
         extra = fom_args_schedule(step) if fom_args_schedule else ()
         lr_t = lr_schedule(step) if lr_schedule is not None else lr
-        with f32_pinned():
-            f, g = _value_and_grad(fom_fn, params, extra)
-            params, m, v, step = adam_update(
-                params, pytree.tree_map(torch.neg, g), m, v, step, lr=lr_t,
-                beta1=beta1, beta2=beta2, eps=eps, lower=lower, upper=upper,
-                eps_in_sqrt=eps_in_sqrt)
-            gn = torch.sqrt(sum((x * x).sum() for x in pytree.tree_leaves(g)))
-            scalars = torch.stack([f.to(gn.dtype), gn])
-        if post_update is not None:
-            params = post_update(params, step)
-        fom, gn = scalars.tolist()
+        with timing.span('adam.step'):
+            with f32_pinned():
+                f, g = _value_and_grad(fom_fn, params, extra)
+                with timing.span('adam.update'):
+                    params, m, v, step = adam_update(
+                        params, pytree.tree_map(torch.neg, g), m, v, step,
+                        lr=lr_t, beta1=beta1, beta2=beta2, eps=eps,
+                        lower=lower, upper=upper, eps_in_sqrt=eps_in_sqrt)
+                    gn = torch.sqrt(sum((x * x).sum()
+                                        for x in pytree.tree_leaves(g)))
+                    scalars = torch.stack([f.to(gn.dtype), gn])
+            if post_update is not None:
+                params = post_update(params, step)
+            with timing.span('adam.read'):
+                fom, gn = scalars.tolist()
         history.append((fom, gn))
         if callback is not None:
             callback(IterationRecord(step=step, fom=fom, grad_norm=gn,
