@@ -135,6 +135,11 @@ Phases (each prints its results; any failure exits non-zero):
      utils.StageTimer, one point against the oracle; the small route's kernels against their plain
      versions at n = 2 and 98 (the large route's at n = 722 and 1250:
      qr_compare.py --stage gates)
+ 22. hessenberg_blocked at n = 882 and 1922 (Examples 5 and 1's large
+     sizes): each panel's column loop in one hess_panel launch against the
+     plain column loop on the same A (Q H Q^H = A and Q unitary, each
+     beside the plain loop's), the stage's time both ways, hess_panel's
+     own device time and launches, beside the stage's bound
 The line before the last is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}.  Needs no JAX and no network.
 """
@@ -193,6 +198,9 @@ STAGE_KERNELS = {
     'tri_vectors': ('tri_vectors_kernel', 'tri_pack_kernel',
                     'tri_vectors_warp_kernel')}
 LARGE = ('schur_ms', 'tri_vectors_blocked')
+# every kernel of the large route: hessenberg_blocked's panel kernel too
+# (it replaces no TPU kernel: no REPLACES entry)
+LARGE_ROUTE = ('hess_panel',) + LARGE
 ALT = ('schur_qr_v2', 'schur_qr_ms')
 BATCHED_ALT = ('schur_qr_baed', 'schur_qr_packed')
 # the stand-alone stages: shifts per sweep of schur_qr_ms on the wave
@@ -1090,7 +1098,7 @@ def order20_slice(torch, tp, ek, dev, out):
     out['peak_gb'] = torch.cuda.max_memory_allocated() / 1e9
     print(f'  launches on the order-20 path: {out["launches"]}; peak memory '
           f'{out["peak_gb"]:.3f} GB')
-    for k in LARGE:
+    for k in LARGE_ROUTE:
         check(out['launches'][k] > 0, f'{k} launched on the order-20 path')
     for k in SMALL:
         check(out['launches'][k] == 0, f'{k} not launched at order 20')
@@ -2411,8 +2419,8 @@ def example_phase(torch, tp, ek, smi, dev, name, out):
     rel_o = abs(foms[0] - f_o) / abs(f_o)
     check(rel_o <= 1e-4, f'{label}: step 0 FoM vs complex128 oracle, '
           f'relative {rel_o:.2e} <= 1e-4')
-    check(all(launches[k] > 0 for k in LARGE) and
-          not any(v for k, v in launches.items() if k not in LARGE),
+    check(all(launches[k] > 0 for k in LARGE_ROUTE) and
+          not any(v for k, v in launches.items() if k not in LARGE_ROUTE),
           f'{label}: the large route\'s kernels launched, no other')
 
     ka = prof.key_averages()
@@ -2819,7 +2827,8 @@ def sweep_phase(torch, tp, ek, smi, dev, out):
     ev[0].record()
     T15 = ex1.t00(f3, geom300, o15)
     ev[1].record()
-    launched(torch, ek, f'example1 order 15, B = 3 (n = {n15})', LARGE, out)
+    launched(torch, ek, f'example1 order 15, B = 3 (n = {n15})', LARGE_ROUTE,
+             out)
     ms15 = ev[0].elapsed_time(ev[1])
     ms15l = once_ms(torch, lambda: ex1.t00(f3, geom300, o15, 'torch'))
     T15o = ex1.t00(f3.double(), geom300.double(), o15, 'torch')
@@ -2861,7 +2870,7 @@ def multilayer_and_grid_phase(torch, tp, ek, smi, dev, out):
         ek.reset_launch_counts()
         t = ex11.t_elements(order_n, dev)
         launched(torch, ek, f'example1_1 order {order_n} (n = {n})',
-                 LARGE if n >= 512 else SMALL, out)
+                 LARGE_ROUTE if n >= 512 else SMALL, out)
         tot = sum(ex11.circular(*t))
         print(f'  example1_1 order {order_n}: TRR + TLR + TRL + TLL '
               f'{tot:.6f}')
@@ -2893,7 +2902,8 @@ def multilayer_and_grid_phase(torch, tp, ek, smi, dev, out):
     ek.reset_launch_counts()
     with timed_eig_stages(torch, stages, whole):
         t3 = ex3.t00_of_wxwy(pts[:, 0], pts[:, 1], o20, device=dev)
-    launched(torch, ek, f'example3 order 20, B = 2 (n = {n20})', LARGE, out)
+    launched(torch, ek, f'example3 order 20, B = 2 (n = {n20})', LARGE_ROUTE,
+             out)
     t3o = ex3.t00_of_wxwy(pts[1:, 0], pts[1:, 1], o20, device=dev,
                           dtype=torch.float64, eig_backend='torch')
     d3 = float((t3[1:].abs() ** 2 - t3o.abs() ** 2).abs().max())
@@ -2911,6 +2921,62 @@ def multilayer_and_grid_phase(torch, tp, ek, smi, dev, out):
                     for n in (2, 98)]
     print(f'  seconds: example 1-1 {t1 - t0:.1f}, example 3 {t2 - t1:.1f}, '
           f'holds {time.perf_counter() - t2:.1f} [{smi}]')
+
+
+def hess_panel_phase(torch, ek, smi, dev):
+    """Phase 22: hessenberg_blocked through the panel kernel against the
+    plain column loop on the same random A at the large route's main sizes:
+    Q H Q^H = A and Q unitary at float32 level, each within 2x of the plain
+    loop's own figure (in complex128 arithmetic); the stage's time both
+    ways (CUDA events), hess_panel's device time (torch.profiler) and
+    launches, beside the stage's bound.  Returns the record."""
+    from torch.profiler import ProfilerActivity, profile
+    from torcwa_tpu_torch.ops import hess_blocked as hb
+    out = {}
+    for n in (882, 1922):
+        A = rand_c64(torch, n, 22000 + n, dev)
+        A64 = A.to(torch.complex128)
+        eye = torch.eye(n, dtype=torch.complex128, device=dev)
+
+        def quality(H, Q):
+            H, Q = H.to(torch.complex128), Q.to(torch.complex128)
+            return (float(torch.linalg.matrix_norm(Q @ H @ Q.mH - A64)
+                          / torch.linalg.matrix_norm(A64)),
+                    float((Q.mH @ Q - eye).abs().max()))
+
+        ek.reset_launch_counts()
+        rec, orth = quality(*hb.hessenberg_blocked(A))
+        launches = ek.LAUNCHES['hess_panel']
+        ms = cuda_ms(torch, lambda: hb.hessenberg_blocked(A), reps=5)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            hb.hessenberg_blocked(A)
+            torch.cuda.synchronize()
+        kern = sum(e.self_device_time_total for e in prof.key_averages()
+                   if 'hess_panel_kernel' in e.key) / 1e3
+        keep = hb.hess_panel
+        hb.hess_panel = hb._columns
+        try:
+            rec_p, orth_p = quality(*hb.hessenberg_blocked(A))
+            ms_p = once_ms(torch, lambda: hb.hessenberg_blocked(A))
+        finally:
+            hb.hess_panel = keep
+        b = bound(3 * n * n * C64, 7 / 3 * n ** 3 * 8)
+        grid = hb.hess_panel_info(n, 128)
+        print(f'  n = {n}: hessenberg_blocked {ms:.2f} ms through hess_panel '
+              f'({launches} launches, {kern:.2f} ms of hess_panel_kernel; '
+              f'grid {grid}), {ms_p:.1f} ms through the plain column loop; '
+              f'bound {b[0]:.4f} ms by {b[1]}; Q H Q^H - A {rec:.2e} ||A||_F '
+              f'(plain {rec_p:.2e}), Q^H Q - I {orth:.2e} (plain '
+              f'{orth_p:.2e}) [{smi}]')
+        check(launches == len(range(0, n - 2, 128)),
+              f'hess_panel n={n}: one launch a panel')
+        check(rec <= 2 * rec_p and orth <= max(2 * orth_p, 1e-6),
+              f'hess_panel n={n}: reconstruction and unitarity within 2x of '
+              'the plain column loop\'s')
+        out[n] = dict(ms=ms, kernel_ms=kern, plain_ms=ms_p, bound_ms=b[0],
+                      bound_by=b[1], launches=launches, reconstruction=rec,
+                      plain_reconstruction=rec_p, unitarity=orth)
+    return out
 
 
 def main():
@@ -3255,6 +3321,9 @@ def run(torch):
     multilayer_and_grid_phase(torch, tp, ek, smi, dev, sw[21])
     check(f32_precision_pinned(), 'the script\'s IEEE f32 setting holds '
           'after the sweep path')
+    phase('22. hessenberg_blocked: hess_panel against the plain column loop '
+          '(n = 882, 1922)')
+    hess_large = hess_panel_phase(torch, ek, smi, dev)
 
     if FAILURES:
         print(f'\n{len(FAILURES)} check(s) failed:', *FAILURES, sep='\n  ')
@@ -3303,6 +3372,10 @@ def run(torch):
                       for label, got in p['launches'].items() if k in got},
             held={f'n={h["n"]}': h[k] for p in sw.values()
                   for h in p['holds'] if k in h}))
+    kernels.append({'name': 'hess_panel', 'route': 'cuda',
+                    'source': 'torcwa_tpu_torch/csrc/hess_panel.cu',
+                    'replaces': None, 'library_ms': None,
+                    'sizes': {f'n={n}': r for n, r in hess_large.items()}})
     print(smi)
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {

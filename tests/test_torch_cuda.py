@@ -407,6 +407,81 @@ def test_tri_vectors_blocked_kernel_at_the_route_block(dev):
     assert float(torch.tril(Y, -1).abs().max()) == 0
 
 
+# ---------------------------------------------------------------------------
+# csrc/hess_panel.cu: a panel's column loop of hessenberg_blocked
+# ---------------------------------------------------------------------------
+
+def _c128(*xs):
+    return [x.to(torch.complex128) for x in xs]
+
+
+@pytest.mark.parametrize('n,panel', [(512, 128), (882, 128), (1922, 128),
+                                     (3362, 128), (300, 32)])
+def test_hess_panel_kernel_matches_the_plain_loop(dev, n, panel,
+                                                  monkeypatch):
+    # the kernel's reduction and the plain loop's on the card, on the same
+    # random A: each element by element within HESS_ROOM times the plain
+    # float32 loop's own distance from the float64 one (as hessenberg is
+    # held), Q H Q^H = A and Q unitary at float32 level, the eigenvalues
+    # after schur_ms against complex128 at phase 18's tolerances; one
+    # launch and one counted panel per panel, the grid as the mirror picks
+    import chip_smoke as cs
+    from torcwa_tpu_torch.ops import eig_qr as eq, hess_blocked as hb
+    from torcwa_tpu_torch.utils import timing
+    A = _rand1(dev, n, 18000 + n)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert hb.hess_panel_info(n, panel) == hb.hess_panel_plan(n, panel, sms)
+    panels = len(range(0, n - 2, panel))
+    before = ek.LAUNCHES['hess_panel']
+    with timing.tracing() as tr:
+        H, Q = hessenberg_blocked(A, panel=panel)
+        torch.cuda.synchronize()
+        tr.collect()
+    assert ek.LAUNCHES['hess_panel'] == before + panels
+    hess, = [s for s in tr.records if s.name == 'eig.hess']
+    assert hess.counters == {'panels': panels}
+    with monkeypatch.context() as m:
+        m.setattr(hb, 'hess_panel', hb._columns)
+        Hp, Qp = hessenberg_blocked(A, panel=panel)
+        H64, Q64 = hessenberg_blocked(A.to(torch.complex128), panel=panel)
+    assert ek.LAUNCHES['hess_panel'] == before + panels
+    A64, = _c128(A)
+    a2 = float(torch.linalg.matrix_norm(A64, ord=2))
+
+    def dist(X, Y):
+        return float((X.to(torch.complex128) - Y).abs().max())
+
+    assert dist(H, H64) / a2 <= HESS_ROOM * dist(Hp, H64) / a2
+    assert dist(Q, Q64) <= HESS_ROOM * dist(Qp, Q64)
+    assert bool((torch.tril(H, -2) == 0).all())
+    fro = float(torch.linalg.matrix_norm(A64))
+    rec, rec_p = (float(torch.linalg.matrix_norm(Y @ X @ Y.mH - A64)) / fro
+                  for X, Y in (_c128(H, Q), _c128(Hp, Qp)))
+    eye = torch.eye(n, dtype=torch.complex128, device=dev)
+    orth = float((_c128(Q)[0].mH @ _c128(Q)[0] - eye).abs().max())
+    print(f'n={n} p={panel}: QHQ^H - A {rec:.2e} ||A||_F (plain loop '
+          f'{rec_p:.2e}), Q^H Q - I {orth:.2e}')
+    assert rec <= 1e-5 and rec <= 2 * rec_p and orth <= 1e-5
+    T, Z, st = sm.schur_ms(H, Q, m=eq.large_shifts(n),
+                           defl_mult=eq.LARGE_DEFL_MULT, return_stats=True)
+    w_ref = torch.linalg.eigvals(A64)
+    d = cs.set_dist(torch.diagonal(T).to(torch.complex128), w_ref)
+    res, orth_z, tri = cs.schur_quality(torch, A, T, Z)
+    assert st[0] == 0 and tri and d <= 1e-4 * float(w_ref.abs().max())
+    assert res <= 1e-4 and orth_z <= 1e-4
+
+
+def test_hess_panel_refuses_what_the_kernel_does_not_take(dev):
+    from torcwa_tpu_torch.ops import hess_blocked as hb
+    A = _rand1(dev, 64, 5)
+    with pytest.raises(TypeError):
+        hb.hess_panel(A.to(torch.complex128), 32, 32)
+    with pytest.raises(ValueError):
+        hb.hess_panel(A.t(), 32, 32)
+    with pytest.raises(ValueError):
+        hb.hess_panel(A, hb.MAX_PANEL + 1, 32)
+
+
 def test_large_route_on_the_card_solves_the_eigenproblem(dev, monkeypatch):
     # eig_qr through hessenberg_blocked -> schur_ms -> tri_vectors_blocked
     from torcwa_tpu_torch.ops import eig_qr as eq
@@ -417,6 +492,7 @@ def test_large_route_on_the_card_solves_the_eigenproblem(dev, monkeypatch):
     A = torch.as_tensor(a.astype(np.complex64), device=dev)
     ek.reset_launch_counts()
     w, V = eq.eig_qr(A)
+    assert ek.LAUNCHES['hess_panel'] == 2 * len(range(0, 198, 128))
     assert ek.LAUNCHES['schur_ms'] > 0
     assert ek.LAUNCHES['tri_vectors_blocked'] > 0
     assert ek.LAUNCHES['schur_qr'] == 0

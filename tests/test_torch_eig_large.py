@@ -25,6 +25,7 @@ import torcwa_tpu_torch as tp  # noqa: E402
 from torcwa_tpu_torch import convert  # noqa: E402
 from torcwa_tpu_torch.ops import eig_kernels as ek  # noqa: E402
 from torcwa_tpu_torch.ops import eig_qr as eq  # noqa: E402
+from torcwa_tpu_torch.ops import hess_blocked as hb  # noqa: E402
 from torcwa_tpu_torch.ops import schur_ms as sm  # noqa: E402
 from torcwa_tpu_torch.ops import vec_blocked as vb  # noqa: E402
 from torcwa_tpu_torch.ops.hess_blocked import hessenberg_blocked  # noqa: E402
@@ -95,6 +96,120 @@ def test_hessenberg_blocked_small_orders(n):
     H, Q = H.numpy(), Q.numpy()
     assert np.abs(np.tril(H, -2)).max() == 0
     assert np.linalg.norm(Q @ H @ Q.conj().T - A) <= 1e-12 * np.linalg.norm(A)
+
+
+def _hess_checks(A, H, Q, tol=1e-12):
+    """H Hessenberg, Q unitary and Q H Q^H = A, at float64."""
+    n = A.shape[-1]
+    assert np.abs(np.tril(H, -2)).max(initial=0) == 0
+    assert np.linalg.norm(Q @ H @ Q.conj().T - A) <= tol * np.linalg.norm(A)
+    assert np.abs(Q.conj().T @ Q - np.eye(n)).max() <= tol
+
+
+def _jax_blocked(A, panel):
+    with jax.default_matmul_precision('highest'):
+        Hr, Hi, Qr, Qi = jax_hess_blocked(*_pair(A, jnp.float64), panel=panel)
+    return _np(Hr, Hi), _np(Qr, Qi)
+
+
+def _zero_columns(A):
+    """A whose columns 0 and 5 reduce to x = 0 (beta = 0): column 0 zero
+    below the diagonal, and A[6:, :6] = 0, which the reflectors of columns
+    1-4 (rows 2-5) keep."""
+    A = A.copy()
+    A[1:, 0] = 0
+    A[6:, :6] = 0
+    return A
+
+
+@pytest.mark.parametrize('panel', [4, 16, 128])
+@pytest.mark.parametrize('n', [18, 64, 130, 257])
+def test_hess_panel_plain_matches_the_column_loop_and_jax(n, panel,
+                                                         monkeypatch):
+    # float64: the model of the kernel's schedule (row-block partial sums,
+    # the merged reduction for ||x||^2 and V^H x, T formed from V^H x)
+    # against the plain column loop, panel by panel on the first panel with
+    # the kernel's grid, 3 blocks and more blocks than rows; then whole
+    # reductions through the model against the JAX package.  n = 257 in
+    # panels of 128 ends in a short panel (127 columns), 64 in panels of 16
+    # too (14); n = 64 has the two zero columns of _zero_columns
+    A = _rand(n, 1000 + n)
+    if n == 64:
+        A = _zero_columns(A)
+    p = min(panel, n - 2)
+    At = torch.as_tensor(A)
+    ref = hb._columns(At, p, p)
+    for rows, blocks in ((None, None), (-(-n // 3), None), (1, n + 5)):
+        got = hb.hess_panel_plain(At, p, p, rows=rows, blocks=blocks)
+        for g, r in zip(got, ref):
+            assert float((g - r).abs().max()) <= 1e-11 * float(r.abs().max())
+    if n == 64:
+        T = ref[2].numpy()
+        assert T[0, 0] == 0 and T[1, 1] > 0 and (p <= 5 or T[5, 5] == 0)
+    monkeypatch.setattr(hb, 'hess_panel', hb.hess_panel_plain)
+    H, Q = (X.numpy() for X in hessenberg_blocked(At, panel=panel))
+    Hj, Qj = _jax_blocked(A, panel)
+    assert np.abs(H - Hj).max() <= 1e-10 * np.abs(A).max()
+    assert np.abs(Q - Qj).max() <= 1e-10
+    _hess_checks(A, H, Q)
+
+
+def test_hess_panel_plain_with_empty_blocks_and_zero_columns(monkeypatch):
+    # more blocks than rows of every panel's trailing block (empty blocks
+    # add zero partials) through a whole reduction with the two zero
+    # columns, against the plain loop's reduction
+    n = 40
+    A = _zero_columns(_rand(n, 7))
+    At = torch.as_tensor(A)
+    H0, Q0 = (X.numpy() for X in hessenberg_blocked(At, panel=8))
+    monkeypatch.setattr(hb, 'hess_panel', lambda At, p, cols:
+                        hb.hess_panel_plain(At, p, cols, rows=1,
+                                            blocks=2 * n))
+    H, Q = (X.numpy() for X in hessenberg_blocked(At, panel=8))
+    assert np.abs(H - H0).max() <= 1e-12 * np.abs(A).max()
+    assert np.abs(Q - Q0).max() <= 1e-12
+    _hess_checks(A, H, Q)
+
+
+@pytest.mark.parametrize('t,vy_smem,stage', [
+    (12, True, True), (512, True, True), (882, True, True),
+    (1922, True, True), (3362, True, True), (5202, False, True),
+    (20000, False, False)])
+def test_hess_panel_plan_picks_the_grid_by_size(t, vy_smem, stage):
+    # at most one block a SM, at least MIN_ROWS rows a block, every row
+    # owned and no block empty, within a block's shared memory; V and Y
+    # rows leave shared memory from n ~ 3700 at p = 128, the staged v from
+    # n ~ 11000
+    g = hb.hess_panel_plan(t, 128)
+    assert 1 <= g['blocks'] <= hb.SMS
+    assert (g['blocks'] - 1) * g['rows'] < t <= g['blocks'] * g['rows']
+    assert g['rows'] >= min(t, hb.MIN_ROWS)
+    assert g['smem_bytes'] <= hb.SMEM_PER_BLOCK
+    assert (g['vy_smem'], g['stage']) == (vy_smem, stage)
+    assert hb.hess_panel_plan(t, 128, sms=8)['blocks'] <= 8
+
+
+def test_hess_panel_wrapper_takes_the_loop_on_the_cpu_and_raises_elsewhere():
+    A = torch.as_tensor(_rand(20, 3).astype(np.complex64))
+    ek.reset_launch_counts()
+    got = hb.hess_panel(A[4:, 4:], 8, 8)
+    for g, r in zip(got, hb._columns(A[4:, 4:], 8, 8)):
+        assert torch.equal(g, r)
+    assert ek.LAUNCHES['hess_panel'] == 0               # CPU: no launch
+    with pytest.raises(RuntimeError, match='no kernel'):
+        hb.hess_panel(torch.empty(20, 20, dtype=torch.complex64,
+                                  device='meta'), 8, 8)
+    with pytest.raises(ValueError):
+        hb.hess_panel(A, 8, 19)
+
+
+def test_eig_hess_counts_the_panels_of_the_plain_loop():
+    from torcwa_tpu_torch.utils import timing
+    with timing.tracing() as tr:
+        hessenberg_blocked(torch.as_tensor(_rand(30, 4)), panel=8)
+        tr.collect()
+    hess, = [s for s in tr.records if s.name == 'eig.hess']
+    assert hess.counters == {'plain_panels': 4}
 
 
 # ---------------------------------------------------------------------------

@@ -36,6 +36,8 @@ _F = ctypes.c_float
 _SIGNATURES = {
     'torcwa_hessenberg_c64': [_P, _P, _P, _I, _I, _P],
     'torcwa_hessenberg_cluster_info': [_I, _P],
+    'torcwa_hess_panel_c64': [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    'torcwa_hess_panel_info': [_I, _I, _P],
     'torcwa_schur_qr_c64': [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     'torcwa_schur_qr_v2_c64': [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     'torcwa_schur_qr_ms_c64': [_P, _P, _P, _I, _I, _I, _P],

@@ -50,15 +50,18 @@ V2_RULES = dict(nruns=1, defl_mult=1., cplx_stall=0)
 # the plain model of its schedule follows the kernel
 WINDOW = 32
 
-# 'schur_ms' counts every launch of a function of csrc/schur_ms.cu (band
-# scan, AED or trailing-block shifts, chase, slab products),
-# 'tri_vectors_blocked' one per row block, 'schur_qr_ms' one per matrix,
-# 'schur_qr_baed' and 'schur_qr_packed' one per batch; their wrappers live
-# in ops/schur_ms.py, ops/vec_blocked.py, ops/schur_qr_ms.py,
-# ops/schur_qr_baed.py and ops/schur_qr_packed.py
+# 'hess_panel' counts one per panel of hessenberg_blocked (csrc/
+# hess_panel.cu, the panel's column loop), 'schur_ms' every launch of a
+# function of csrc/schur_ms.cu (band scan, AED or trailing-block shifts,
+# chase, slab products), 'tri_vectors_blocked' one per row block,
+# 'schur_qr_ms' one per matrix, 'schur_qr_baed' and 'schur_qr_packed' one
+# per batch; their wrappers live in ops/hess_blocked.py, ops/schur_ms.py,
+# ops/vec_blocked.py, ops/schur_qr_ms.py, ops/schur_qr_baed.py and
+# ops/schur_qr_packed.py
 LAUNCHES = {'hessenberg': 0, 'schur_qr': 0, 'tri_vectors': 0,
-            'schur_ms': 0, 'tri_vectors_blocked': 0, 'schur_qr_v2': 0,
-            'schur_qr_ms': 0, 'schur_qr_baed': 0, 'schur_qr_packed': 0}
+            'hess_panel': 0, 'schur_ms': 0, 'tri_vectors_blocked': 0,
+            'schur_qr_v2': 0, 'schur_qr_ms': 0, 'schur_qr_baed': 0,
+            'schur_qr_packed': 0}
 
 
 def reset_launch_counts():

@@ -9,7 +9,9 @@ Counterpart of the routing in ``torcwa_tpu/ops/eig_qr_real.py``
   ``hessenberg`` -> ``schur_qr`` (single shift) -> ``tri_vectors``
   (``eig_kernels.py``);
 * n >= ``LARGE_MIN_N``: the large-n route, lane by lane:
-  ``hessenberg_blocked`` (compact-WY panels, plain torch GEMV/GEMM) ->
+  ``hessenberg_blocked`` (compact-WY panels: each panel's column loop one
+  launch of ``csrc/hess_panel.cu``, its end-of-panel update three cuBLAS
+  GEMMs) ->
   ``schur_ms`` (windowed multishift QR with aggressive early deflation,
   m = 24 shifts below n = 4200, else 32) -> ``tri_vectors_blocked``.
 
