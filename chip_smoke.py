@@ -852,7 +852,8 @@ def large_kernel_checks(torch, ek, dev):
           f'wb={sm.window(m)}; plain version skipped: minutes at this size): '
           f'(hi, sweeps, aed, skipped) {st[:4]}, {vs_pr5("n=640", st)}; '
           f'eigenvalues vs complex128 {d:.2e}; residual {res:.2e}; '
-          f'unitarity {orth:.2e}')
+          f'unitarity {orth:.3e} against its gate 1e-5 (9.894e-6 before '
+          f'the warp-chain AED)')
     # the gate at float32's noise floor: on this input (seed 640) the
     # kernel read unitarity 9.894e-6 and residual 5.58e-6, its plain
     # float32 version 5.126e-6 and 5.79e-6 on the same H (qr_compare.py

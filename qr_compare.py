@@ -4,12 +4,13 @@ the default), the batched Hessenberg reduction (csrc/hessenberg.cu), the
 batched triangular eigenvectors (csrc/tri_vectors.cu), the one-launch
 multishift QR (csrc/schur_qr_ms.cu), the blocked triangular eigenvectors
 (csrc/tri_vectors_blocked.cu) or the two batched Schur stages on no route
-(csrc/schur_qr_packed.cu, csrc/schur_qr_baed.cu).
+(csrc/schur_qr_packed.cu, csrc/schur_qr_baed.cu), or the large route's
+windowed multishift QR (csrc/schur_ms.cu).
 
     python3 qr_compare.py [--stage schur_qr|hessenberg|tri_vectors|
                                    schur_qr_ms|tri_vectors_blocked|
                                    schur_qr_packed|schur_qr_baed|
-                                   unitarity|gates]
+                                   schur_ms|unitarity|gates]
                           [--fmad=false] [DIR ...]
                           (default: this checkout)
 
@@ -72,6 +73,20 @@ card's name and power limit.
   loop by phase: AED, transform, chase), and the composed
   eig through it and through ek.schur_qr beside one torch.linalg.eig
   complex64 call.  --fmad=false as for schur_qr_packed.
+* schur_ms: sm.schur_ms as the route calls it (m = large_shifts(n), the
+  route's deflation multiplier) on one wave matrix at 500 nm and 10
+  degrees at orders (10, 10), (8, 15) and (15, 15) (n = 882, 1054, 1922:
+  Example 5's, Example 6's and Example 1's sizes), H and Q from
+  hessenberg_blocked (the same code and bits in every checkout so far; a
+  checksum of H shows it), with the stats tuple (hi, sweeps, AED-deflated,
+  skipped chases, flops done, flops needed), the whole Schur form's ms, the
+  eig.schur span's aed_rotations where the checkout counts them, and the AED
+  pass's cycles by part with the window QR's rotations from a build of
+  csrc/schur_ms.cu alone with clock64() probes (as for schur_qr_baed; the
+  kernels launched through that library).  With --fmad=false the probed
+  build is made without FMA contraction and only the stats, the rotations
+  and aed_rotations are read: two checkouts that apply the same operations
+  in the same order then agree bit for bit.
 * unitarity: max|Z^H Z - I| of the multishift Schur stages where their
   float32 round-off meets chip_smoke.py's 1e-5 gates: schur_qr_ms (m = 16)
   on the order-6 wave matrix at 500 nm (phase 10) and schur_qr_baed on the
@@ -229,19 +244,22 @@ extern "C" int torcwa_aed_clocks(void* out) {
 """
 
 
-def probed_sources(csrc, dst):
-    """A copy of csrc in dst whose schur_qr_baed.cu sums the AED pass's
-    cycles by part and exports torcwa_aed_clocks; returns the -D flags its
-    build needs."""
+def probed_sources(csrc, dst, source='schur_qr_baed.cu'):
+    """A copy of csrc in dst whose `source` sums the AED pass's cycles by
+    part and exports torcwa_aed_clocks; returns the -D flags its build
+    needs."""
     import shutil
     shutil.rmtree(dst, ignore_errors=True)
     shutil.copytree(csrc, dst)
     warp = dst / 'aed_warp.cuh'
-    if warp.exists() and 'TORCWA_AED_CLOCKS' in warp.read_text():
+    if (warp.exists() and 'TORCWA_AED_CLOCKS' in warp.read_text()
+            and '"aed_warp.cuh"' in (dst / source).read_text()):
         symbol, flags = 'aed_warp::torcwa_aed_clk', ['-DTORCWA_AED_CLOCKS']
     else:
-        for name, probes in (('ms_aed.cuh', _MS_AED_PROBES),
-                             ('schur_qr_baed.cu', _BAED_PROBES)):
+        probes = [('ms_aed.cuh', _MS_AED_PROBES)]
+        if source == 'schur_qr_baed.cu':
+            probes.append(('schur_qr_baed.cu', _BAED_PROBES))
+        for name, probes in probes:
             text = (dst / name).read_text()
             for anchor, new in probes:
                 if text.count(anchor) != 1:
@@ -250,9 +268,22 @@ def probed_sources(csrc, dst):
                 text = text.replace(anchor, new)
             (dst / name).write_text(text)
         symbol, flags = 'torcwa_aed_clk', []
-    src = dst / 'schur_qr_baed.cu'
+    src = dst / source
     src.write_text(src.read_text() + _CLK_READER.replace('SYMBOL', symbol))
     return flags
+
+
+def _clk_parts(buf):
+    """The AED passes' cycles by part from the probe's slots: per pass, per
+    QR sweep (the scan and shift) and per rotation, with the counts."""
+    v = dict(zip(AED_CLK_SLOTS, buf))
+    p, r, w = max(v['passes'], 1), max(v['rotations'], 1), max(v['sweeps'], 1)
+    return dict(passes=v['passes'], rotations=v['rotations'],
+                sweeps=v['sweeps'],
+                per_pass={k: v[k] / p for k in ('total', 'qr', 'after')},
+                per_sweep={'scan': v['scan'] / w},
+                per_rotation={k: v[k] / r for k in ('form', 'rows', 'barrier',
+                                                      'cols')}), v
 
 
 def aed_cycles(torch, clk, H, Q, m, kw, budget):
@@ -270,14 +301,8 @@ def aed_cycles(torch, clk, H, Q, m, kw, budget):
     torch.cuda.synchronize()
     if err or clk.torcwa_aed_clocks(buf):
         raise RuntimeError(f'probed schur_qr_baed n={n}: launch failed')
-    v = dict(zip(AED_CLK_SLOTS, buf))
-    p, r, w = max(v['passes'], 1), max(v['rotations'], 1), max(v['sweeps'], 1)
-    return dict(passes=v['passes'], rotations=v['rotations'],
-                sweeps=v['sweeps'], sweeps_kernel=st[:, 1].tolist(),
-                per_pass={k: v[k] / p for k in ('total', 'qr', 'after')},
-                per_sweep={'scan': v['scan'] / w},
-                per_rotation={k: v[k] / r for k in ('form', 'rows', 'barrier',
-                                                      'cols')},
+    parts, v = _clk_parts(buf)
+    return dict(parts, sweeps_kernel=st[:, 1].tolist(),
                 loop_per_matrix={k: v[k] / B for k in (
                     'loop', 'aed_phase', 'transform', 'chase',
                     'loop_sweeps')})
@@ -701,6 +726,79 @@ def one_schur_qr_baed(label, no_fma):
     print(json.dumps(out), flush=True)
 
 
+SCHUR_MS_ORDERS = ((10, 10), (8, 15), (15, 15))
+
+
+def one_schur_ms(label, no_fma):
+    """--stage schur_ms in the checkout that is the working directory."""
+    sys.path.insert(0, os.getcwd())
+    import contextlib
+    import types
+    import torch
+    import chip_smoke as cs
+    import torcwa_tpu_torch as tp
+    from torcwa_tpu_torch.ops import _build, eig_qr as eq, schur_ms as sm
+    from torcwa_tpu_torch.ops.hess_blocked import hessenberg_blocked
+    from torcwa_tpu_torch.utils import timing
+    dev = torch.device('cuda', 0)
+    names = tuple(k for k in _build._SIGNATURES if k.startswith('torcwa_ms_'))
+    src = _build.BUILD_ROOT / 'qr_compare_probed'
+    flags = probed_sources(_build.CSRC, src, 'schur_ms.cu')
+    clk = _alone_library(_build, 'schur_ms.cu', names + ('torcwa_aed_clocks',),
+                         flags + (['-fmad=false'] if no_fma else []), src)
+
+    @contextlib.contextmanager
+    def probed():
+        """schur_ms's launches through the probed library."""
+        built = sm._build
+        sm._build = types.SimpleNamespace(load=lambda: clk)
+        try:
+            yield
+        finally:
+            sm._build = built
+
+    out = dict(dir=label, card=cs.smi_line(), stage='schur_ms',
+               fmad=not no_fma, h_sum={}, stats={}, ms={}, aed_rotations={},
+               probed_stats={}, aed_cycles={})
+    buf = (ctypes.c_ulonglong * len(AED_CLK_SLOTS))()
+    for order in SCHUR_MS_ORDERS:
+        _, A = cs.wave_matrices(torch, tp, order, cs.LAM_L,
+                                math.radians(cs.WELL_POSED_DEG),
+                                torch.float32, dev)
+        H, Q = hessenberg_blocked(A[0].contiguous())
+        n = H.shape[-1]
+        key = f'n={n}'
+        out['h_sum'][key] = [float(H.real.double().sum()),
+                             float(H.imag.double().sum())]
+
+        def run():
+            return sm.schur_ms(H, Q, m=eq.large_shifts(n),
+                               defl_mult=eq.LARGE_DEFL_MULT,
+                               return_stats=True)[2]
+        if not no_fma:
+            out['stats'][key] = list(run())
+            out['ms'][key] = cs.cuda_ms(torch, run, reps=3)
+        with timing.tracing() as tr:
+            with contextlib.ExitStack() as stack:
+                if no_fma:
+                    stack.enter_context(probed())
+                st = run()
+            torch.cuda.synchronize()
+            rec = [r for r in tr.collect() if r.name == 'eig.schur']
+        if no_fma:
+            out['stats'][key] = list(st)
+        out['aed_rotations'][key] = rec[0].counters.get('aed_rotations')
+        clk.torcwa_aed_clocks(buf)
+        with probed():
+            out['probed_stats'][key] = list(run())
+        torch.cuda.synchronize()
+        if clk.torcwa_aed_clocks(buf):
+            raise RuntimeError(f'{key}: reading the probes failed')
+        out['aed_cycles'][key] = _clk_parts(buf)[0]
+        print(json.dumps(dict(out, partial=True)), flush=True)
+    print(json.dumps(out), flush=True)
+
+
 def main(args):
     import torch
     if not torch.cuda.is_available():
@@ -726,7 +824,7 @@ def main(args):
 
 STAGES = ('schur_qr', 'hessenberg', 'tri_vectors', 'schur_qr_ms',
           'tri_vectors_blocked', 'schur_qr_packed', 'schur_qr_baed',
-          'unitarity', 'gates')
+          'schur_ms', 'unitarity', 'gates')
 
 if __name__ == '__main__':
     if sys.argv[1:2] == ['--one']:
@@ -743,6 +841,8 @@ if __name__ == '__main__':
             one_schur_qr_packed(label, '--fmad=false' in sys.argv[4:])
         elif stage == 'schur_qr_baed':
             one_schur_qr_baed(label, '--fmad=false' in sys.argv[4:])
+        elif stage == 'schur_ms':
+            one_schur_ms(label, '--fmad=false' in sys.argv[4:])
         elif stage == 'unitarity':
             one_unitarity(label)
         elif stage == 'gates':

@@ -13,8 +13,10 @@ on through the profiled phase.  It prints the readings of the cell's
 per-layer readers, the benchmark's older ones and the four that read the
 port's spans (``hess_idle_share``, ``refine_ms``, ``schur_sweeps``,
 ``setup_eig_s``, given ``ctx.program``), the profiled phase's idle gaps
-by what the host did, and the tracer's reports of set-up and of the spans
-phase.
+by what the host did, the tracer's reports of set-up and of the spans
+phase, and, on the large route, the AED pass: the ``ms_aed`` launches'
+device time in the profiled window per launch and per rotation of the
+window QR (the ``eig.schur`` spans' ``aed_rotations`` in that phase).
 
 With ``--cost-units K`` it then runs six blocks of K units each, tracer
 off, on, on, off, off, on, and prints each block's mean unit time (host
@@ -51,6 +53,21 @@ def _units(run, tracer_on, k, timing, sync, device):
         for _ in range(k):
             run.unit()
     return (time.perf_counter() - t0) / k
+
+
+def aed_pass(trace, schur_spans):
+    """ms_aed's device time in the profiled window: launches, rotations
+    and the time a launch (ms) and a rotation (ns); None off the large
+    route."""
+    lo, hi = trace.window
+    ns = [min(b, hi) - max(a, lo) for a, b, name in trace.device_ops
+          if 'ms_aed' in name and b > lo and a < hi]
+    rot = sum(s.counters.get('aed_rotations', 0) for s in schur_spans)
+    if not ns or not rot:
+        return None
+    return {'launches': len(ns), 'rotations': rot,
+            'ms_a_pass': sum(ns) / len(ns) / 1e6,
+            'ns_a_rotation': sum(ns) / rot}
 
 
 def main(argv=None):
@@ -104,7 +121,7 @@ def main(argv=None):
             finally:
                 prof.stop()
             sync(device)
-            tr.collect()
+            profiled_port = tr.collect()
         profiled_spans, spans.records = spans.records, traced_spans
     finally:
         undo()
@@ -124,11 +141,15 @@ def main(argv=None):
            'busy_s': tr_.busy_ns() / 1e9 if tr_.window else None,
            'window_s': tr_.window_ns() / 1e9 if tr_.window else None,
            'idle_gaps': tr_.breakdown()['idle_gaps'] if tr_.window else None,
+           'aed_pass': aed_pass(tr_, [s for s in profiled_port
+                                      if s.name == 'eig.schur'])
+           if tr_.window else None,
            'card': harness.power_limit()}
     print(f'{args.workload} seed {args.seed}: card {out["card"]}')
     print(f'set-up:\n{setup_report}\nthe spans phase:\n{report}')
     for k, v in readings.items():
         print(f'  {k} {v!r}')
+    print(f'  aed_pass {out["aed_pass"]!r}')
     if args.cost_units:
         blocks = []
         for on in (False, True, True, False, False, True):

@@ -321,6 +321,76 @@ def test_schur_ms_kernels_match_plain(dev, n, m, kw, wb):
     assert 0.5 * stp[1] <= st[1] <= 2 * stp[1]
 
 
+# (kw, rows of the window): uncut at kw = 64 and 24, and cut by lo to 39
+# and 20 rows, so that a lane's second slot runs (kwe > 32) and does not
+AED_PASSES = [(64, 64), (64, 39), (64, 20), (24, 24)]
+
+
+def _aed_pass(dev, kw, rows, exc, small_spike):
+    """One AED pass of the route (the band scan, then ms_aed) on H after
+    three sweeps of the kernels, and aed_plain on the same H: what the test
+    holds, with the distances.  small_spike: the window's H[s, s-1], the
+    spike's scale, set to 1e-6 max|H| (still alive for the band scan), so
+    that the bottom of the window deflates and ms_aed writes its block."""
+    n, m, mult = 140, 8, 4.0
+    H, Z = hessenberg_blocked(_rand1(dev, n, 21 + kw), panel=32)
+    sm.run_sweeps(H, Z, 3, m=m, kw=kw, wb=128, defl_mult=mult)
+    lo, hi = sm.band_scan_plain(H, n - 1, mult)
+    if rows < kw:
+        lo = hi - rows
+        H[lo, lo - 1] = 0
+    if small_spike:
+        s = max(hi - kw + 1, lo + 1)
+        H[s, s - 1] *= 1e-6 * H.abs().max() / H[s, s - 1].abs()
+    ops = sm._CudaOps(H.clone(), Z.clone(), m, kw, 128, mult)
+    got = ops.scan_and_aed(n - 1, exc)
+    torch.cuda.synchronize()
+    s, kwe, hi_new, shifts, _ = sm.aed_plain(H.cpu(), lo, hi, m, kw, mult,
+                                             exc)
+    e = s + kwe
+    _, _, hi_m, its, rot = sm._mini_schur(H[s:e, s:e].cpu(), 3 * kw + 40)
+    Lp = ops.Lp[:kwe * kwe].view(kwe, kwe)
+    # the block ms_aed writes where it deflates: [beta e1 | W] taken
+    # through Lp (the deflated lanes' spike entries and the known zeros
+    # set to 0 there); elsewhere H as it was
+    want = H.clone()
+    if hi_new < hi:
+        want[s:e, s - 1] = H[s, s - 1] * Lp[:, 0]
+        want[s:e, s:e] = Lp @ H[s:e, s:e] @ Lp.mH
+    scale = float(H.abs().max())
+    eye = torch.eye(kwe, dtype=Lp.dtype, device=dev)
+    return dict(
+        got=got, want=(lo, hi, s, kwe, hi_new), rows=rows,
+        qr=ops.info[6:8].tolist() + [int(ops.aed_rotations)],
+        qr_plain=[hi_m, its, rot], deflated=hi - hi_new,
+        shifts=float((ops.shifts.cpu() - shifts).abs().max()) / scale,
+        unitarity=float((Lp.mH @ Lp - eye).abs().max()),
+        block=float((ops.H - want).abs().max()) / scale)
+
+
+@pytest.mark.parametrize('small_spike', [False, True])
+@pytest.mark.parametrize('exc', [False, True])
+@pytest.mark.parametrize('kw,rows', AED_PASSES)
+def test_ms_aed_pass_matches_aed_plain(dev, kw, rows, exc, small_spike):
+    # the window, its new bottom, its QR's final bottom, iterations and
+    # rotations (the eig.schur counter aed_rotations) exactly as the plain
+    # version's; the shifts in order at float32 level (1e-4 of max|H|).
+    # The window's Schur vectors, and so Lp and the block written back, are
+    # the plain version's to float32 level only where the window's
+    # eigenvalues lie well apart (2.96e-2 apart in Lp at kw = 64 here,
+    # where the whole route's stats are those of the one-warp AED bit for
+    # bit); what holds on every input: Lp is unitary, the block ms_aed
+    # wrote is the window taken through Lp, and nothing else of H moved.
+    # With a small spike the window deflates, so the block is written
+    r = _aed_pass(dev, kw, rows, exc, small_spike)
+    assert r['deflated'] > 0 or not small_spike
+    assert r['got'] == r['want'] and r['want'][3] == rows
+    assert r['qr'] == r['qr_plain'] and r['qr'][2] > 0
+    assert r['shifts'] <= 1e-4
+    assert r['unitarity'] <= 1e-5
+    assert r['block'] <= 1e-4
+
+
 def test_schur_ms_kernels_poison_on_a_starved_budget(dev):
     A = _rand1(dev, 96, 3)
     H, Q = hessenberg_blocked(A, panel=32)
@@ -756,7 +826,7 @@ def test_schur_qr_baed_aed_rotations_keep_z_unitary(dev):
     # float32, Z came out unitary to 1.1e-5 - 1.2e-5 on some lane for the
     # Hessenberg forms of the cluster kernel, the plain float32 reduction and
     # the float64 one rounded; its plain version forms them in float64 and
-    # rounds them (schur_ms._givens_scalar), as csrc/ms_aed.cuh now does,
+    # rounds them (schur_ms._givens_scalar), as csrc/aed_warp.cuh does,
     # and every lane holds chip_smoke.py phase 13's 1e-5
     from torcwa_tpu_torch.ops import schur_qr_baed as sb
     cs, A = _wave(dev, 7, 8)

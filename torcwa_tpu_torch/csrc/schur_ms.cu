@@ -33,11 +33,15 @@
 //
 // Design for an H100:
 //  * ms_band_scan: one block; two integer max-reductions over the band.
-//  * ms_aed: one block, the window W, its Schur vectors, the bordered
-//    matrix [spike | T] and the accumulated transform in shared memory
-//    (~133 KB at kw = 64).  It writes the transformed diagonal block and
-//    spike column back to H itself, with the known zeros exact, and the
-//    kwe x kwe transform Lp for the off-diagonal slabs.
+//  * ms_aed: one block of four warps, the window W in the bordered matrix
+//    [spike | T] and its Schur vectors in the accumulated transform, in
+//    shared memory (68,632 bytes at kw = 64; aed_warp.cuh).  Warp 0 chases
+//    the window's single-shift QR, warp 1 forms each rotation one ahead of
+//    it, warps 2-3 apply a sweep's rotations to the Schur vectors a sweep
+//    behind.  It writes the transformed diagonal block and spike column
+//    back to H itself, with the known zeros exact, the kwe x kwe transform
+//    Lp for the off-diagonal slabs, and adds the window QR's rotations to a
+//    running count in `info`.
 //  * ms_trailing_shifts (aed=False): one warp, the m x m block in shared
 //    memory; it fills `info` and `shifts` where ms_aed would.
 //  * ms_chase: one block per window; a window of up to 169 rows is staged
@@ -77,12 +81,13 @@
 // x m row pairs of wb elements), a sizeable share of a window at wb =
 // 128, where all threads with a barrier a step beat one thread per column
 // without barriers.  AED is the serial mini-Schur in one
-// block.  The slab products are the only throughput part (~2 n wb^2
+// block, a chain of rotations whose forming in double precision sets its
+// pace.  The slab products are the only throughput part (~2 n wb^2
 // complex multiply-adds per window, 0.86 GFLOP at n = 3362, wb = 128: 13
 // us at the 67 TFLOP/s FFMA rate), ~200 strips of 32 at that size, 1.5
 // a streaming multiprocessor.
 
-#include "ms_aed.cuh"
+#include "aed_warp.cuh"
 #include "ms_shifts.cuh"
 
 namespace {
@@ -97,8 +102,11 @@ constexpr int kMaxM = 64;     // shifts per sweep
 constexpr int kMaxKw = kAedMaxKw;  // AED window
 constexpr int kMaxW = 256;    // order of a slab transform (chase window)
 
-// info[]: what the host reads back once per sweep
-enum { I_LO = 0, I_HI, I_S, I_KWE, I_HINEW, I_KU, I_HIM, I_MINI_IT, I_COUNT };
+// info[]: what the host reads back once per sweep (the first five), and
+// the AED window QR's rotations summed over the launches (ops/schur_ms.py
+// mirrors I_ROT and I_COUNT)
+enum { I_LO = 0, I_HI, I_S, I_KWE, I_HINEW, I_KU, I_HIM, I_MINI_IT, I_ROT,
+       I_COUNT };
 
 // ---------------------------------------------------------------------------
 // band scan
@@ -131,7 +139,8 @@ ms_band_scan(const float2* __restrict__ H, int n, int hi_top, float defl_mult,
 // aggressive early deflation
 // ---------------------------------------------------------------------------
 
-// The AED body is aed_window of ms_aed.cuh (schur_qr_baed.cu runs it too,
+// The AED body is aed_window_warp of aed_warp.cuh with its rotations formed
+// ahead of the chase (schur_qr_baed.cu runs it with the one-warp schedule,
 // inside its own sweep loop); this launch adds what the host loop needs: the
 // kwe x kwe transform Lp for the slab products and the info record.
 __global__ void __launch_bounds__(kAedThreads)
@@ -148,9 +157,11 @@ ms_aed(float2* __restrict__ H, int n, int* __restrict__ info, int exc, int m,
     }
     return;
   }
-  const AedResult r = aed_window<kAedThreads, 0>(
-      H, n, lo, hi, exc != 0, m, kw, defl_mult, false, sm, shifts);
-  const float2* L = sm + aed_L_offset(kw);
+  auto hat = [&](int i, int j) { return H + (size_t)i * n + j; };
+  const AedResult r = aed_window_warp<kAedThreads, 0, true>(
+      hat, n, lo, hi, exc != 0, m, kw, defl_mult, false, sm, shifts,
+      info + I_ROT);
+  const float2* L = sm + aed_warp_L_offset(kw);
   const int kwe = r.kwe, ld1 = kw + 1;
   for (int e = tid; e < kwe * kwe; e += kAedThreads)
     Lp[(e / kwe) * kwe + e % kwe] = L[(e / kwe + 1) * ld1 + e % kwe + 1];
@@ -543,7 +554,7 @@ extern "C" int torcwa_ms_aed_c64(void* H, int n, void* info, int exc, int m,
                                  void* shifts, void* stream) {
   if (kw < 1 || kw > kMaxKw || m < 1 || m > kMaxM)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = aed_smem_elems(kw) * sizeof(float2);
+  const size_t smem = aed_warp_smem_elems(kw) * sizeof(float2);
   cudaError_t err = set_smem(ms_aed, smem);
   if (err != cudaSuccess) return (int)err;
   ms_aed<<<1, kAedThreads, smem, (cudaStream_t)stream>>>(

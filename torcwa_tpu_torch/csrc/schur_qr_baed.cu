@@ -9,7 +9,7 @@
 //  * band scan at eps (|d| + |d'|) (multiplier 1): the active block [lo, hi]
 //    is the bottom-most alive run at or above the previous bottom;
 //  * AED on the kw-row trailing window from s = max(hi - kw + 1, lo + 1)
-//    (ms_aed.cuh): single-shift Schur form of the window with accumulated
+//    (aed_warp.cuh): single-shift Schur form of the window with accumulated
 //    vectors, budget 3 kw + 40; the spike beta Qm[:, 0]; the bottom run of
 //    converged lanes with |spike_i| <= eps max(|T_ii|, max|W|) deflates, max|W|
 //    over the uncut kw-row window as the TPU kernel sees it; the transform is

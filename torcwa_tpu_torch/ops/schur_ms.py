@@ -23,11 +23,13 @@ sweep loop runs here on the host, once for both versions:
 * 13 sweeps without progress make the next sweep exceptional.
 
 :class:`_CudaOps` launches the functions of ``csrc/schur_ms.cu`` and reads
-five integers back per sweep; :class:`_PlainOps` is the plain PyTorch
-version of the same steps, rotation by rotation, in the input's precision.
-Convention in both: plain Q and plain Z (no conjugated accumulators, no
-transposed storage); a rotation G = [[c, s], [-conj(s), c]] acts on rows
-k, k+1 from the left and G^H on columns k, k+1 from the right.
+five integers back per sweep (the AED window QR's rotations stay on the
+card, summed, for the ``eig.schur`` span's ``aed_rotations`` counter);
+:class:`_PlainOps` is the plain PyTorch version of the same steps,
+rotation by rotation, in the input's precision.  Convention in both: plain
+Q and plain Z (no conjugated accumulators, no transposed storage); a
+rotation G = [[c, s], [-conj(s), c]] acts on rows k, k+1 from the left and
+G^H on columns k, k+1 from the right.
 """
 
 import torch
@@ -50,6 +52,9 @@ MAX_ITER_FACTOR = 40
 ALIGN = 64           # window starts and the window advance are multiples of it
 # limits compiled into csrc/schur_ms.cu
 _MAX_M, _MAX_KW, _MAX_WB = 64, 64, 256
+# its info record: I_ROT, the AED window QR's rotations summed over the
+# launches, and I_COUNT, the record's length
+_I_ROT, _I_COUNT = 8, 9
 
 
 def _overlap(m):
@@ -112,12 +117,13 @@ def _mini_schur(W, budget, vectors=True):
     """Single-shift Schur form of a small Hessenberg W with accumulated
     Qm, T = Qm W Qm^H (eig_qr_hbm._mini_schur; without ``vectors``
     eig_qr_pallas_ms._mini_eigvals, Qm staying the identity).  Returns (T,
-    Qm, hi_m, iterations); lanes >= hi_m of T are converged eigenvalues."""
+    Qm, hi_m, iterations, rotations); lanes >= hi_m of T are converged
+    eigenvalues."""
     W = W.clone()
     kw = W.shape[-1]
     eps, smlnum = _consts(W.dtype)
     Qm = torch.eye(kw, dtype=W.dtype)
-    hi, it = kw - 1, 0
+    hi, it, rot = kw - 1, 0, 0
     true = torch.ones((), dtype=torch.bool)
     while True:
         d = torch.diagonal(W).abs()
@@ -148,7 +154,8 @@ def _mini_schur(W, budget, vectors=True):
             x = complex(W[k + 1, k])
             y = complex(W[k + 2, k]) if k + 2 <= hi else 0j
         it += 1
-    return W, Qm, hi, it
+        rot += hi - lo
+    return W, Qm, hi, it, rot
 
 
 def band_scan_plain(H, hi_top, mult):
@@ -282,13 +289,14 @@ def trailing_shifts_plain(H, lo, hi, m, exc=False):
 
 def aed_plain(H, lo, hi, m, kw, mult, exc, uncut_scale=False):
     """Aggressive early deflation on the trailing window of the active block
-    [lo, hi] (hi > 0) of H, in place: the plain version of ``aed_window`` in
-    ``csrc/ms_aed.cuh``.  The window of kwe <= kw rows from s = max(hi - kw +
-    1, lo + 1) is worked on the CPU in H's precision: its single-shift Schur
-    form, the spike, the bottom run of converged lanes with |spike_i| <= mult
-    eps max(|T_ii|, max|W|) deflated (max|W| over the kw rows and columns from
-    s when ``uncut_scale``, as the batched kernel's uncut window sees it, else
-    over the cut window), the m shifts, the Householder reduction back to
+    [lo, hi] (hi > 0) of H, in place: the plain version of
+    ``aed_window_warp`` in ``csrc/aed_warp.cuh``.  The window of kwe <= kw
+    rows from s = max(hi - kw + 1, lo + 1) is worked on the CPU in H's
+    precision: its single-shift Schur form, the spike, the bottom run of
+    converged lanes with |spike_i| <= mult eps max(|T_ii|, max|W|)
+    deflated (max|W| over the kw rows and columns from s when
+    ``uncut_scale``, as the batched kernel's uncut window sees it, else over
+    the cut window), the m shifts, the Householder reduction back to
     Hessenberg form.  Where it deflates, the window's own block and spike
     column of H are overwritten with the known zeros exact; the off-window
     slabs are the caller's.  Returns (s, kwe, hi_new, shifts (m,), P (kwe,
@@ -300,7 +308,7 @@ def aed_plain(H, lo, hi, m, kw, mult, exc, uncut_scale=False):
     beta = H[s, s - 1].cpu()
     scale = H[s:s + kw, s:s + kw] if uncut_scale else W
     smax = max(float(scale.abs().max()), smlnum)
-    T, Qm, hi_m, _ = _mini_schur(W, 3 * kw + 40)
+    T, Qm, hi_m, _, _ = _mini_schur(W, 3 * kw + 40)
     spike = beta * Qm[:, 0]
     td = torch.diagonal(T)
     lane = torch.arange(kwe)
@@ -502,7 +510,7 @@ class _CudaOps:
         self.n = H.shape[-1]
         self.m, self.kw, self.wb, self.defl_mult = m, kw, wb, defl_mult
         dev = H.device
-        self.info = torch.zeros(8, dtype=torch.int32, device=dev)
+        self.info = torch.zeros(_I_COUNT, dtype=torch.int32, device=dev)
         self.Lp = torch.zeros(kw * kw, dtype=H.dtype, device=dev)
         self.U = torch.zeros(wb * wb, dtype=H.dtype, device=dev)
         self.shifts = torch.zeros(m, dtype=H.dtype, device=dev)
@@ -517,6 +525,11 @@ class _CudaOps:
                 self.Lp.data_ptr(), self.shifts.data_ptr())
         lo, hi, s, kwe, hi_new = self.info[:5].tolist()
         return lo, hi, s, kwe, hi_new
+
+    @property
+    def aed_rotations(self):
+        """The AED window QR's rotations so far, a 0-d tensor on the card."""
+        return self.info[_I_ROT]
 
     def scan_and_shifts(self, hi_top, exc):
         H, n = self.H, self.n
@@ -619,6 +632,13 @@ def run_sweeps(H, Z, budget, plain=False, m=24, kw=AED_KW, wb=None,
     the stats of :func:`_sweeps`; H stays a unitary similarity of its
     input, upper Hessenberg with the rows below hi triangular."""
     wb = window(m) if wb is None else wb
+    return _sweeps(_ops(H, Z, plain, m, kw, wb, defl_mult), H.shape[-1], m,
+                   kw, wb, budget, nibble, aed)
+
+
+def _ops(H, Z, plain, m, kw, wb, defl_mult):
+    """The steps of a sweep on H and Z: the kernels for CUDA tensors, the
+    plain version for CPU tensors or when ``plain``."""
     if not plain and H.device.type != 'cpu':
         if H.device.type != 'cuda':
             raise RuntimeError(f'schur_ms: no kernel for device '
@@ -629,10 +649,8 @@ def run_sweeps(H, Z, budget, plain=False, m=24, kw=AED_KW, wb=None,
                             f'be ported')
         if not (H.is_contiguous() and Z.is_contiguous()):
             raise ValueError('schur_ms: H and Z must be contiguous')
-        ops = _CudaOps(H, Z, m, kw, wb, defl_mult)
-    else:
-        ops = _PlainOps(H, Z, m, kw, wb, defl_mult)
-    return _sweeps(ops, H.shape[-1], m, kw, wb, budget, nibble, aed)
+        return _CudaOps(H, Z, m, kw, wb, defl_mult)
+    return _PlainOps(H, Z, m, kw, wb, defl_mult)
 
 
 def _finish(H, Z, stats, return_stats):
@@ -682,9 +700,11 @@ def schur_ms(H, Q, m=24, kw=AED_KW, wb=None, defl_mult=4.0,
         H, Z = H.contiguous().clone(), Q.contiguous().clone()
         if budget is None:
             budget = max_sweeps(n, m, max_iter_factor)
-        stats = run_sweeps(H, Z, budget, False, m, kw, wb, defl_mult,
-                           nibble, aed)
+        ops = _ops(H, Z, False, m, kw, wb, defl_mult)
+        stats = _sweeps(ops, n, m, kw, wb, budget, nibble, aed)
         if sp is not None:
             sp.count('sweeps', stats[1])
             sp.count('matrices', 1)
+            if aed and isinstance(ops, _CudaOps):
+                sp.count('aed_rotations', ops.aed_rotations)
         return _finish(H, Z, stats, return_stats)

@@ -44,7 +44,7 @@ from .schur_qr_ms import (CLUSTER, CLUSTER_WIDE, SMEM_PER_BLOCK,
 __all__ = ['schur_qr_baed', 'schur_qr_baed_plain', 'schur_qr_baed_cluster',
            'schur_qr_baed_cluster_info', 'MAX_M', 'MAX_KW']
 
-# limits compiled into csrc/ms_shifts.cuh and csrc/ms_aed.cuh
+# limits compiled into csrc/ms_shifts.cuh and csrc/aed_warp.cuh
 MAX_M, MAX_KW = 64, 64
 
 
