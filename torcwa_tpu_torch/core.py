@@ -1,10 +1,16 @@
 """RCWA algebra on native complex tensors.
 
 Counterpart of ``torcwa_tpu/core.py``: the block-2x2-diagonal helpers,
-``vmat``, ``kz_conj_branch``, the cladding S-matrices (the functional main
-path), and the layer eigenmodes, layer S-matrices with their mode-coupling
-blocks, the Redheffer star product with mode propagation and the order
-bookkeeping that the class API (``solver.py``) runs on.
+``vmat``, ``kz_conj_branch``, the layer eigenmodes, layer S-matrices with
+their mode-coupling blocks, the Redheffer star product with mode
+propagation and the order bookkeeping.
+
+This module also owns every stage after the layers, in one implementation
+that both front ends run: free space and the claddings (``claddings``),
+the Redheffer fold (``fold``), the xy and ps S-parameters (``sparams``)
+and the Fourier source (``incident_amplitudes``).  The class API
+(``solver.rcwa``) and the functional solve (``fmm``) only turn their
+arguments into these functions' inputs.
 
 A "bdp" is a complex tensor of shape (..., 2, 2, N) standing for the
 2N x 2N matrix [[diag(a00), diag(a01)], [diag(a10), diag(a11)]].  The
@@ -20,14 +26,17 @@ import torch
 
 from .ops.cplx import csqrt
 from .ops.eig import eig
+from .utils import timing
 
 __all__ = ['bdp_mul', 'bdp_inv', 'bdp_apply', 'bdp_apply_right',
            'bdp_scale_cols', 'bdp_dense', 'bdp_eye', 'vmat', 'kz_conj_branch',
            'interface_smatrix_in', 'interface_smatrix_out', 'pq_matrices',
            'pq_homogeneous_bdp', 'homogeneous_kz', 'eigen_decomposition',
            'LayerSolution', 'layer_H', 'layer_smatrix',
-           'layer_smatrix_homogeneous', 'redheffer_product', 'redheffer_update_modes', 'matching_indices',
-           'diffraction_angles', 'conv_to_grid']
+           'layer_smatrix_homogeneous', 'redheffer_product',
+           'redheffer_update_modes', 'matching_indices', 'diffraction_angles',
+           'conv_to_grid', 'claddings', 'fold', 'sparams',
+           'incident_amplitudes']
 
 
 def bdp_mul(a, b):
@@ -370,3 +379,185 @@ def conv_to_grid(conv, order, nx=100, ny=100):
     F = conv.new_zeros(nx, ny).index_put(
         (t(ii), t(jj)), conv[t(src_r), t(src_c)])
     return torch.fft.ifft2(F) * (nx * ny)
+
+
+# ---------------------------------------------------------------------------
+# After the layers: the stages both front ends run
+# ---------------------------------------------------------------------------
+
+def claddings(kx, ky, clad_in, clad_out):
+    """Free space and the claddings on a k-grid (reference
+    rcwa.py:1124-1181): a dict of free space's ``kz_f``, ``Vf`` and
+    ``Vf_inv`` and, for each cladding given as (eps, mu), its V (``Vi``,
+    ``Vo``) and its interface S-matrix [S11, S21, S12, S22] as bdps
+    (``Sin``, ``Sout``).  kx, ky (..., N), real or complex."""
+    one = torch.ones((), dtype=torch.promote_types(kx.dtype, torch.complex64),
+                     device=kx.device)
+    kz_f = kz_conj_branch(one, kx, ky)
+    Vf = vmat(kx, ky, kz_f)
+    out = dict(kz_f=kz_f, Vf=Vf, Vf_inv=bdp_inv(Vf))
+    for V, Sk, clad, smat in (('Vi', 'Sin', clad_in, interface_smatrix_in),
+                              ('Vo', 'Sout', clad_out,
+                               interface_smatrix_out)):
+        if clad is not None:
+            out[V] = vmat(kx, ky, kz_conj_branch(clad[0] * clad[1], kx, ky))
+            out[Sk] = smat(Vf, out[V])
+    return out
+
+
+@timing.spanned('fmm.fold')
+def fold(Ss, Cs, Sin, Sout):
+    """Global S-matrix of the layers' [S11, S21, S12, S22] (stack order)
+    and the claddings' by Redheffer star products (reference
+    rcwa.py:173-211, 1283-1306), carrying each layer's (Cf, Cb) where Cs
+    lists them.  This loop is the port's counterpart of both of the JAX
+    package's folds (unrolled and lax.scan): each folds the same products
+    in the same order."""
+    S = Ss[0]
+    C = None if Cs is None else list(Cs[:1])
+    for i in range(1, len(Ss)):
+        S_new, t1, t2 = redheffer_product(S, Ss[i])
+        if C is not None:
+            C = redheffer_update_modes(C, [Cs[i]], S, Ss[i], t1, t2)
+        S = S_new
+    for Sc, outer in ((Sin, True), (Sout, False)):
+        if Sc is None:
+            continue
+        Sm, Sn = (Sc, S) if outer else (S, Sc)
+        S, t1, t2 = redheffer_product(Sm, Sn)
+        if C is not None:
+            C = redheffer_update_modes(*(([], C) if outer else (C, [])),
+                                       Sm, Sn, t1, t2)
+    return S, C
+
+
+# (direction, port) -> (the S block, the output order's cladding, the
+# reference order's cladding, their propagation signs in the ps basis).
+# The output order's kz is the power normalisation's numerator, the
+# reference order's its denominator (reference rcwa.py:377-388, 430-437).
+_PORTS = {('forward', 'transmission'): (0, 'out', 'in', 1., 1.),
+          ('forward', 'reflection'): (1, 'in', 'in', -1., 1.),
+          ('backward', 'reflection'): (2, 'out', 'out', 1., -1.),
+          ('backward', 'transmission'): (3, 'in', 'out', -1., -1.)}
+
+
+def _eps_mu(clad, like):
+    """A cladding's (eps, mu) as eps * mu, a tensor of ``like``'s dtype and
+    device; eps alone where mu is None."""
+    eps, mu = (torch.as_tensor(v, dtype=like.dtype, device=like.device)
+               if v is not None else None for v in clad)
+    return eps if mu is None else eps * mu
+
+
+def _kz_cladding(k2, kx, ky):
+    """kz = sqrt(k2 - kx^2 - ky^2) of real kx, ky in a cladding of
+    eps * mu = k2, csqrt's branch."""
+    return csqrt(k2 - (kx ** 2).to(k2.dtype) - (ky ** 2).to(k2.dtype))
+
+
+def _evanescent(kz, evanescent):
+    return torch.abs(kz.real / kz.imag) < evanescent
+
+
+def _ps_angles(kx, ky, k2, sign):
+    """Inclination and azimuth of orders kx, ky (real) in a cladding of
+    eps * mu = k2, on the side that ``sign`` gives (+1 forward-going), and
+    their complex kz (reference rcwa.py:438-461, 580-588)."""
+    kz = _kz_cladding(k2, kx, ky)
+    inc = torch.atan2(torch.sqrt(kx ** 2 + ky ** 2), sign * torch.abs(kz.real))
+    return inc, torch.atan2(ky, kx), kz
+
+
+def sparams(S, kx, ky, clad_in, clad_out, oi, ri, polarization, direction,
+            port, power_norm, evanescent):
+    """S-parameters at the flat order indices oi against the reference
+    order ri (reference rcwa.py:300-524).
+
+    S is [S11, S21, S12, S22], each (..., 2N, 2N); kx, ky (..., N) real;
+    clad_in / clad_out (eps, mu), mu None for eps alone.  xy
+    polarizations ('xx', 'yx', 'xy', 'yy') read one entry of a block; ps
+    ones ('pp', 'sp', 'ps', 'ss') recombine the four with each order's
+    inclination and azimuth, zeroed where the output order is evanescent
+    (|Re kz / Im kz| < evanescent) and all zero where the reference order
+    is.  ``power_norm`` scales by the orders' kz ratio, in xy also by their
+    in-plane k; an evanescent order's kz reads 0 there, except that the
+    ps basis keeps |Re kz| for the output cladding, as the reference does
+    (rcwa.py:490 against 495).  Non-finite values read as 0.  Returns
+    complex (..., n_orders)."""
+    N = kx.shape[-1]
+    blk, o_side, r_side, o_sign, r_sign = _PORTS[(direction, port)]
+    k2 = {'in': _eps_mu(clad_in, S[0]), 'out': _eps_mu(clad_out, S[0])}
+    ps = polarization not in ('xx', 'yx', 'xy', 'yy')
+
+    def kz_real(side):
+        """Re kz of a cladding over its N orders; evanescent ones read 0,
+        or |Re kz| in the ps basis's output cladding."""
+        kz = _kz_cladding(k2[side], kx, ky)
+        fill = (torch.abs(kz.real) if ps and side == 'out'
+                else torch.zeros_like(kz.real))
+        return torch.where(_evanescent(kz, evanescent), fill, kz.real)
+
+    oi = torch.as_tensor(oi, device=kx.device)
+    ri = torch.as_tensor(ri, device=kx.device)
+    if power_norm:
+        kz = {side: kz_real(side) for side in {o_side, r_side}}
+        no, nr = kz[o_side][..., oi], kz[r_side][..., ri]
+    if not ps:
+        k = {'x': kx, 'y': ky}
+        s = S[blk][..., oi + (N if polarization[0] == 'y' else 0),
+                   ri + (N if polarization[1] == 'y' else 0)]
+        if power_norm:
+            norm = torch.sqrt((1 + (k[polarization[0]][..., oi] / no) ** 2)
+                              / (1 + (k[polarization[1]][..., ri] / nr) ** 2))
+            s = s * (norm * torch.sqrt(no / nr))
+        bad = ~torch.isfinite(s.real) | ~torch.isfinite(s.imag)
+        return torch.where(bad, torch.zeros_like(s), s)
+
+    o_inc, o_azi, o_kz = _ps_angles(kx[..., oi], ky[..., oi], k2[o_side],
+                                    o_sign)
+    r_inc, r_azi, r_kz = _ps_angles(kx[..., ri], ky[..., ri], k2[r_side],
+                                    r_sign)
+    o_evan = _evanescent(o_kz, evanescent)
+    Sb = S[blk]
+    zero = lambda x: torch.where(o_evan, torch.zeros_like(x), x)
+    xx = zero(Sb[..., oi, ri])
+    xy = zero(Sb[..., oi, ri + N])
+    yx = zero(Sb[..., oi + N, ri])
+    yy = zero(Sb[..., oi + N, ri + N])
+    co, so, ci = torch.cos(o_azi), torch.sin(o_azi), torch.cos(o_inc)
+    cr, sr, cri = torch.cos(r_azi), torch.sin(r_azi), torch.cos(r_inc)
+    # real coefficients (the angles are real; rcwa.py:466-485)
+    coeff = {
+        'pp': (co / ci * cri * cr, so / ci * cri * cr,
+               co / ci * cri * sr, so / ci * cri * sr),
+        'ps': (co / ci * (-sr), so / ci * (-sr), co / ci * cr, so / ci * cr),
+        'sp': (-so * cri * cr, co * cri * cr, -so * cri * sr, co * cri * sr),
+        'ss': (-so * (-sr), co * (-sr), -so * cr, co * cr),
+    }[polarization]
+    s = coeff[0] * xx + coeff[1] * yx + coeff[2] * xy + coeff[3] * yy
+    if power_norm:
+        s = s * torch.sqrt(no / nr)
+    bad = (~torch.isfinite(s.real) | ~torch.isfinite(s.imag)
+           | _evanescent(r_kz, evanescent))
+    return torch.where(bad, torch.zeros_like(s), s)
+
+
+def incident_amplitudes(amp, idx, n, kx, ky, clad, sign):
+    """Incident Fourier amplitudes (2N,) (reference rcwa.py:539-596): the
+    pairs amp (n_orders, 2) scattered to the flat order indices idx.
+    Without ``clad`` they are (x, y) pairs.  With it they are (p, s)
+    pairs, turned to (x, y) by each order's rotation in the source side's
+    cladding (eps, mu), given the orders' real kx, ky (..., N) and the
+    side's sign (+1 forward, -1 backward); the result is then (..., 2N)."""
+    t = torch.as_tensor(idx, device=amp.device)
+    E = amp.new_zeros(2 * n).index_put((t,), amp[:, 0]) \
+        .index_put((t + n,), amp[:, 1])
+    if clad is None:
+        return E
+    inc, azi, _ = _ps_angles(kx, ky, _eps_mu(clad, amp), sign)
+    # the ps -> xy block-diagonal rotation (rcwa.py:589-594), real
+    ep, es = E[:n], E[n:]
+    return torch.cat([torch.cos(inc) * torch.cos(azi) * ep
+                      - torch.sin(azi) * es,
+                      torch.cos(inc) * torch.sin(azi) * ep
+                      + torch.cos(azi) * es], -1)

@@ -3,16 +3,21 @@
 Counterpart of ``torcwa_tpu/fmm.py``: patterned layers (mu = 1 or a
 permeability raster), homogeneous layers in O(N) block-diagonal algebra,
 free-space-referenced layer S-matrices, an input and an output cladding,
-the Redheffer fold (one loop, carrying the layers' mode-coupling blocks
-where asked), the reference's P-inverse fallback, mode
-propagation for the fields, the xy and ps S-parameters and the two
-sources.  Conventions are the upstream torcwa's: Lorentz-Heaviside units,
-exp(-j w t), Laurent rule, Im(kz) >= 0 per layer type.
+the reference's P-inverse fallback, mode propagation for the fields, the
+xy and ps S-parameters and the two sources.  Conventions are the upstream
+torcwa's: Lorentz-Heaviside units, exp(-j w t), Laurent rule, Im(kz) >= 0
+per layer type.
+
+This module owns the functional front end: the batched k-grids, the mu = 1
+P and Q, the patterned layers' batched S-matrix tails and the stacking of
+the layers for the fold.  Everything after the layers (free space and
+the claddings, the Redheffer fold, the S-parameters and the source) is
+``core.py``'s, one implementation that the class API (``solver.rcwa``)
+runs too; this module turns its arguments into those functions' inputs.
 
 Wavelengths are a batch dimension written out: ``freq`` of shape (B,)
 makes every layer quantity (n_layers, B, ...), and one eig kernel launch
-serves every patterned layer and wavelength.  The layer algebra is
-``core.py``'s, shared with the class API.  The JAX package's split-real
+serves every patterned layer and wavelength.  The JAX package's split-real
 pairs and its checkpoint policy (sized for 16 GB of TPU memory) are not
 carried over.
 """
@@ -23,12 +28,11 @@ import numpy as np
 import torch
 
 from ._constants import PI_REF, complex_dtype_of, pinned, real_dtype_of
-from .core import (bdp_apply, bdp_dense, bdp_inv, conv_to_grid,
-                   diffraction_angles, eigen_decomposition,
-                   interface_smatrix_in, interface_smatrix_out,
-                   kz_conj_branch, layer_H, layer_smatrix,
+from . import core
+from .core import (bdp_apply, bdp_dense, conv_to_grid, diffraction_angles,
+                   eigen_decomposition, layer_H, layer_smatrix,
                    layer_smatrix_homogeneous, matching_indices, pq_matrices,
-                   redheffer_product, redheffer_update_modes, vmat)
+                   redheffer_product)
 from .ops.cplx import csqrt
 from .ops.fourier import material_conv
 from .utils import timing
@@ -106,11 +110,6 @@ def pq_pair(eps_conv, kx, ky):
     return P, Q
 
 
-def _eye_like(M):
-    n = M.shape[-1]
-    return torch.eye(n, dtype=M.dtype, device=M.device)
-
-
 def _layer_smatrix_tail_nomodes(P, E, kz, Vf_inv, omega, thickness, Q=None,
                                 max_pinv=0.005):
     """S11, S21, H and the P-inverse metrics of a layer from its
@@ -132,7 +131,7 @@ def _layer_smatrix_tail_nomodes(P, E, kz, Vf_inv, omega, thickness, Q=None,
     X1 = torch.linalg.solve(Apl + Bphi, U, left=False)
     X2 = torch.linalg.solve(Apl - Bphi, V, left=False)
     S11 = X1 + X2
-    S21 = X1 - X2 - _eye_like(X1)
+    S21 = X1 - X2 - torch.eye(X1.shape[-1], dtype=X1.dtype, device=X1.device)
     return S11, S21, H, instability
 
 
@@ -198,32 +197,6 @@ def redheffer_pair(Sm, Sn):
     return redheffer_product(Sm, Sn)[0]
 
 
-@timing.spanned('fmm.fold')
-def _fold(Ss, Cs, Sin, Sout):
-    """Global S-matrix of the layers' [S11, S21, S12, S22] (stack order)
-    and the claddings' by Redheffer star products (reference
-    rcwa.py:173-211, 1283-1306), carrying each layer's (Cf, Cb) where Cs
-    lists them.  This loop is the port's counterpart of both of the JAX
-    package's folds (unrolled and lax.scan): each folds the same products
-    in the same order."""
-    S = Ss[0]
-    C = None if Cs is None else list(Cs[:1])
-    for i in range(1, len(Ss)):
-        S_new, t1, t2 = redheffer_product(S, Ss[i])
-        if C is not None:
-            C = redheffer_update_modes(C, [Cs[i]], S, Ss[i], t1, t2)
-        S = S_new
-    for Sc, outer in ((Sin, True), (Sout, False)):
-        if Sc is None:
-            continue
-        Sm, Sn = (Sc, S) if outer else (S, Sc)
-        S, t1, t2 = redheffer_product(Sm, Sn)
-        if C is not None:
-            C = redheffer_update_modes(*(([], C) if outer else (C, [])),
-                                       Sm, Sn, t1, t2)
-    return S, C
-
-
 @pinned
 @timing.spanned('fmm.solve')
 def solve_stack_pair(spec, freq, inc_ang, azi_ang, eps_grids, thicknesses,
@@ -268,8 +241,8 @@ def solve_stack_pair(spec, freq, inc_ang, azi_ang, eps_grids, thicknesses,
         The detached per-layer (Pinv, Qinv) metrics are
         ``internals['pinv_instability']``.
       fold: 'unroll', 'scan' or 'auto', the JAX package's choice of
-        fold; each names the one loop of ``_fold``, which folds the same
-        products in the same order as either.
+        fold; each names the one loop of ``core.fold``, which folds the
+        same products in the same order as either.
       device: where the solve runs; None follows the first tensor among
         the permittivities (then freq and thicknesses), else the CUDA card,
         so a stack given only as Python numbers solves on the card.
@@ -329,10 +302,11 @@ def solve_stack_pair(spec, freq, inc_ang, azi_ang, eps_grids, thicknesses,
     else:
         n_ref = torch.ones((), dtype=rdt, device=dev)
     kx, ky = kvectors_real(freq, inc_ang, azi_ang, n_ref, order, L, rdt)
-    kz_f = kz_conj_branch(one, kx, ky)
-    Vf = vmat(kx, ky, kz_f)
-    Vf_inv = bdp_inv(Vf)
-    internals = dict(kx=kx, ky=ky, kz_f=kz_f, Vf=Vf)
+    clad = core.claddings(
+        kx, ky, (eps_in, mu_in) if spec.has_input else None,
+        (cplx(eps_out), mu_out) if spec.has_output else None)
+    Vf, Vf_inv = clad['Vf'], clad['Vf_inv']
+    internals = dict(kx=kx, ky=ky, kz_f=clad['kz_f'], Vf=Vf)
 
     # each layer's (S11, S21[, G, D], kz, E, H), leading dimension B
     rows = [None] * spec.n_layers
@@ -398,17 +372,10 @@ def solve_stack_pair(spec, freq, inc_ang, azi_ang, eps_grids, thicknesses,
         Ss = [[eye, torch.zeros_like(eye), torch.zeros_like(eye),
                eye.clone()]]
         Cs = [] if with_modes else None
-    Sin = Sout = None
-    if spec.has_input:
-        Vi = vmat(kx, ky, kz_conj_branch(eps_in * mu_in, kx, ky))
-        internals['Vi'] = Vi
-        Sin = [bdp_dense(b) for b in interface_smatrix_in(Vf, Vi)]
-    if spec.has_output:
-        eps_out = cplx(eps_out)
-        Vo = vmat(kx, ky, kz_conj_branch(eps_out * mu_out, kx, ky))
-        internals['Vo'] = Vo
-        Sout = [bdp_dense(b) for b in interface_smatrix_out(Vf, Vo)]
-    S, C = _fold(Ss, Cs, Sin, Sout)
+    internals.update((k, clad[k]) for k in ('Vi', 'Vo') if k in clad)
+    Sin, Sout = ([bdp_dense(b) for b in clad[k]] if k in clad else None
+                 for k in ('Sin', 'Sout'))
+    S, C = core.fold(Ss, Cs, Sin, Sout)
     if with_modes:
         internals['C'] = C
     if scalar:
@@ -430,58 +397,20 @@ def _drop_batch(key, v):
     return v
 
 
-def _cladding(v, like):
-    return torch.as_tensor(v, dtype=like.dtype, device=like.device)
-
-
 @timing.spanned('fmm.sparam')
 def sparam_xy_pair(S, kx, ky, eps_in, eps_out, order, orders, ref_order,
                    polarization='xx', direction='forward',
                    port='transmission', evanescent=1e-3, mu_in=None,
                    mu_out=None):
     """Power-normalised xy S-parameter at the given orders (upstream
-    rcwa.py S-parameter, power_norm=True).  kx, ky (..., N) real; the
-    result is complex (..., n_orders).  Non-finite values read as 0.  The
-    claddings' kz use eps * mu where mu_in / mu_out are given."""
-    if mu_in is not None:
-        eps_in = _cladding(eps_in, S[0]) * _cladding(mu_in, S[0])
-    if mu_out is not None:
-        eps_out = _cladding(eps_out, S[0]) * _cladding(mu_out, S[0])
-    N = (2 * order[0] + 1) * (2 * order[1] + 1)
-    oi = matching_indices(orders, order)
-    ri = matching_indices(np.asarray(ref_order).reshape(1, 2), order)
-    oi_p = torch.as_tensor(oi + (N if polarization in ('yx', 'yy') else 0))
-    ri_p = torch.as_tensor(ri + (N if polarization in ('xy', 'yy') else 0))
-    cdt = S[0].dtype
-
-    def kz_real(eps):
-        eps = torch.as_tensor(eps, dtype=cdt, device=kx.device)
-        kzc = csqrt(eps - (kx ** 2).to(cdt) - (ky ** 2).to(cdt))
-        ev = torch.abs(kzc.real / kzc.imag) < evanescent
-        v = torch.where(ev, torch.zeros_like(kzc.real), kzc.real)
-        return torch.cat([v, v], -1)
-
-    kz_in = kz_real(eps_in)
-    kz_out = kz_real(eps_out)
-    kxr = torch.cat([kx, kx], -1)
-    kyr = torch.cat([ky, ky], -1)
-    pol_map = {'xx': (kxr, kxr), 'xy': (kxr, kyr),
-               'yx': (kyr, kxr), 'yy': (kyr, kyr)}
-    num_pol, den_pol = pol_map[polarization]
-    sel = {('forward', 'transmission'): (kz_out, kz_in, 0),
-           ('forward', 'reflection'): (kz_in, kz_in, 1),
-           ('backward', 'reflection'): (kz_out, kz_out, 2),
-           ('backward', 'transmission'): (kz_in, kz_out, 3)}
-    num_kz, den_kz, blk = sel[(direction, port)]
-    oi_p = oi_p.to(kx.device)
-    ri_p = ri_p.to(kx.device)
-    no, nr = num_kz[..., oi_p], den_kz[..., ri_p]
-    norm = torch.sqrt((1 + (num_pol[..., oi_p] / no) ** 2)
-                      / (1 + (den_pol[..., ri_p] / nr) ** 2))
-    norm = norm * torch.sqrt(no / nr)
-    s = S[blk][..., oi_p, ri_p] * norm
-    bad = ~torch.isfinite(s.real) | ~torch.isfinite(s.imag)
-    return torch.where(bad, torch.zeros_like(s), s)
+    rcwa.py S-parameter, power_norm=True; ``core.sparams``).  kx, ky
+    (..., N) real; the result is complex (..., n_orders).  Non-finite
+    values read as 0.  The claddings' kz use eps * mu where mu_in / mu_out
+    are given."""
+    return core.sparams(S, kx, ky, (eps_in, mu_in), (eps_out, mu_out),
+                        matching_indices(orders, order),
+                        matching_indices(ref_order, order), polarization,
+                        direction, port, True, evanescent)
 
 
 def sparam_ps_pair(S, kx, ky, eps_in, eps_out, order, orders, ref_order,
@@ -490,74 +419,13 @@ def sparam_ps_pair(S, kx, ky, eps_in, eps_out, order, orders, ref_order,
                    mu_out=None):
     """Power-normalised ps S-parameter at the given orders (reference
     rcwa.py:410-521): the xx, xy, yx and yy entries recombined with each
-    order's inclination and azimuth.  kx, ky (..., N) real; the result is
-    complex (..., n_orders).  The claddings' kz use eps * mu where mu_in /
-    mu_out are given.  Zero where the reference order is evanescent; an
-    evanescent output order keeps |Re kz| in the normalisation instead of
-    0, as the reference does (rcwa.py:490 against 495)."""
-    cdt = S[0].dtype
-    eps_in, eps_out = _cladding(eps_in, S[0]), _cladding(eps_out, S[0])
-    if mu_in is not None:
-        eps_in = eps_in * _cladding(mu_in, S[0])
-    if mu_out is not None:
-        eps_out = eps_out * _cladding(mu_out, S[0])
-    N = (2 * order[0] + 1) * (2 * order[1] + 1)
-    t = lambda i: torch.as_tensor(i, device=kx.device)
-    oi = t(matching_indices(orders, order))
-    ri = t(matching_indices(np.asarray(ref_order).reshape(1, 2), order))
-    idx, o_sign, r_sign, o_eps, r_eps = {
-        ('forward', 'transmission'): (0, 1., 1., eps_out, eps_in),
-        ('forward', 'reflection'): (1, -1., 1., eps_in, eps_in),
-        ('backward', 'reflection'): (2, 1., -1., eps_out, eps_out),
-        ('backward', 'transmission'): (3, -1., -1., eps_in, eps_out),
-    }[(direction, port)]
-
-    def kz_c(eps, kxs, kys):
-        return csqrt(eps - (kxs ** 2).to(cdt) - (kys ** 2).to(cdt))
-
-    def angles(sel, eps, sign):
-        kxs, kys = kx[..., sel], ky[..., sel]
-        kzc = kz_c(eps, kxs, kys)
-        kz = sign * torch.abs(kzc.real)
-        evan = torch.abs(kzc.real / kzc.imag) < evanescent
-        return (torch.atan2(torch.sqrt(kxs ** 2 + kys ** 2), kz),
-                torch.atan2(kys, kxs), evan)
-
-    o_inc, o_azi, o_evan = angles(oi, o_eps, o_sign)
-    r_inc, r_azi, r_evan = angles(ri, r_eps, r_sign)
-    Sb = S[idx]
-    zero = lambda x: torch.where(o_evan, torch.zeros_like(x), x)
-    xx = zero(Sb[..., oi, ri])
-    xy = zero(Sb[..., oi, ri + N])
-    yx = zero(Sb[..., oi + N, ri])
-    yy = zero(Sb[..., oi + N, ri + N])
-    co, so, ci = torch.cos(o_azi), torch.sin(o_azi), torch.cos(o_inc)
-    cr, sr, cri = torch.cos(r_azi), torch.sin(r_azi), torch.cos(r_inc)
-    # real coefficients (the angles are real; rcwa.py:466-485)
-    coeff = {
-        'pp': (co / ci * cri * cr, so / ci * cri * cr,
-               co / ci * cri * sr, so / ci * cri * sr),
-        'ps': (co / ci * (-sr), so / ci * (-sr), co / ci * cr, so / ci * cr),
-        'sp': (-so * cri * cr, co * cri * cr, -so * cri * sr, co * cri * sr),
-        'ss': (-so * (-sr), co * (-sr), -so * cr, co * cr),
-    }[polarization]
-    s = coeff[0] * xx + coeff[1] * yx + coeff[2] * xy + coeff[3] * yy
-
-    def kz_real(eps, keep_abs_for_evan):
-        kzc = kz_c(eps, kx, ky)
-        ev = torch.abs(kzc.real / kzc.imag) < evanescent
-        return torch.where(ev, torch.abs(kzc.real) if keep_abs_for_evan
-                           else torch.zeros_like(kzc.real), kzc.real)
-
-    kz_in, kz_out = kz_real(eps_in, False), kz_real(eps_out, True)
-    num_kz, den_kz = {('forward', 'transmission'): (kz_out, kz_in),
-                      ('forward', 'reflection'): (kz_in, kz_in),
-                      ('backward', 'reflection'): (kz_out, kz_out),
-                      ('backward', 'transmission'): (kz_in, kz_out),
-                      }[(direction, port)]
-    s = s * torch.sqrt(num_kz[..., oi] / den_kz[..., ri])
-    bad = ~torch.isfinite(s.real) | ~torch.isfinite(s.imag) | r_evan
-    return torch.where(bad, torch.zeros_like(s), s)
+    order's inclination and azimuth, zero where the reference order is
+    evanescent (``core.sparams``).  Arguments and result as
+    :func:`sparam_xy_pair`'s."""
+    return core.sparams(S, kx, ky, (eps_in, mu_in), (eps_out, mu_out),
+                        matching_indices(orders, order),
+                        matching_indices(ref_order, order), polarization,
+                        direction, port, True, evanescent)
 
 
 def source_fourier_pair(order, amplitude, orders, direction='forward',
@@ -589,26 +457,14 @@ def source_fourier_pair(order, amplitude, orders, direction='forward',
     if not isinstance(amplitude, torch.Tensor):
         amplitude = np.asarray(amplitude, dtype=np.complex128)
     amp = torch.as_tensor(amplitude, dtype=cdt, device=device).reshape(-1, 2)
-    N = (2 * order[0] + 1) * (2 * order[1] + 1)
-    idx = torch.as_tensor(matching_indices(orders, order), device=device)
-    E_i = amp.new_zeros(2 * N).index_put((idx,), amp[:, 0]) \
-        .index_put((idx + N,), amp[:, 1])
-    if notation == 'ps':
-        fwd = direction == 'forward'
-        em = [torch.as_tensor(1. if v is None else v, dtype=cdt,
-                              device=device)
-              for v in ((eps_in, mu_in) if fwd else (eps_out, mu_out))]
-        kzc = csqrt(em[0] * em[1] - (kx ** 2).to(cdt) - (ky ** 2).to(cdt))
-        kz = (1. if fwd else -1.) * torch.abs(kzc.real)
-        inc = torch.atan2(torch.sqrt(kx ** 2 + ky ** 2), kz)
-        azi = torch.atan2(ky, kx)
-        # the ps -> xy block-diagonal rotation (rcwa.py:589-594), real
-        ep, es = E_i[:N], E_i[N:]
-        E_i = torch.cat([torch.cos(inc) * torch.cos(azi) * ep
-                         - torch.sin(azi) * es,
-                         torch.cos(inc) * torch.sin(azi) * ep
-                         + torch.cos(azi) * es], -1)
-    return E_i
+    fwd = direction == 'forward'
+    clad = (tuple(1. if v is None else v
+                  for v in ((eps_in, mu_in) if fwd else (eps_out, mu_out)))
+            if notation == 'ps' else None)
+    return core.incident_amplitudes(
+        amp, matching_indices(orders, order),
+        (2 * order[0] + 1) * (2 * order[1] + 1), kx, ky, clad,
+        1. if fwd else -1.)
 
 
 def source_planewave_pair(order, amplitude=(1., 0.), direction='forward',

@@ -15,6 +15,13 @@ A patterned layer's eigenmodes go through ``ops.eig`` and, with
 kernels (``ops/eig_qr.py``); a homogeneous layer (scalar eps and mu) stays
 in O(N) block-diagonal algebra.  The solver runs on ``device``: the CUDA
 card unless the caller passes ``device='cpu'``.
+
+This module owns the class front end: the argument conventions, the
+k-grids (a complex incidence angle, measured in either cladding) and the
+state.  The layer algebra and every stage after the layers (free space
+and the claddings, the Redheffer fold, the S-parameters and the source)
+are ``core.py``'s, the same functions that the functional solve
+(``fmm``) runs.
 """
 
 import warnings
@@ -25,7 +32,7 @@ import torch
 from ._constants import PI_REF, pinned, real_dtype_of, validate_sim_dtype
 from . import core
 from . import fields as _fields
-from .core import bdp_apply, bdp_dense, bdp_inv
+from .core import bdp_dense
 from .ops.cplx import csqrt
 from .ops.eig import Eig
 from .ops.fourier import material_conv
@@ -45,26 +52,16 @@ _BACKENDS = {'auto': 'kernels', 'kernels': 'kernels', 'qr': 'kernels',
 
 @pinned
 def _kvectors(inc, azi, eps_ang, mu_ang, ox, oy, Gx, Gy, clad_in, clad_out):
-    """k-vector grids, the free-space V and the cladding interfaces'
-    S-matrices (reference rcwa.py:1124-1181); clad_in / clad_out are
-    (eps, mu) or None."""
+    """k-vector grids, then free space and the claddings on them
+    (``core.claddings``); clad_in / clad_out are (eps, mu) or None."""
     n_med = csqrt(eps_ang * mu_ang).real
     kx0 = n_med * torch.sin(inc) * torch.cos(azi)
     ky0 = n_med * torch.sin(inc) * torch.sin(azi)
     kx, ky = kx0 + ox * Gx, ky0 + oy * Gy
     Kx = kx[:, None].expand(-1, len(ky)).reshape(-1)
     Ky = ky[None, :].expand(len(kx), -1).reshape(-1)
-    one = torch.ones((), dtype=Kx.dtype, device=Kx.device)
-    Vf = core.vmat(Kx, Ky, core.kz_conj_branch(one, Kx, Ky))
-    out = dict(kx0=kx0, ky0=ky0, Kx=Kx, Ky=Ky, Vf=Vf, Vf_inv=bdp_inv(Vf))
-    for key, clad, smat in (('in', clad_in, core.interface_smatrix_in),
-                            ('out', clad_out, core.interface_smatrix_out)):
-        if clad is not None:
-            V = core.vmat(Kx, Ky, core.kz_conj_branch(clad[0] * clad[1],
-                                                      Kx, Ky))
-            out[f'V{key[0]}'] = V
-            out[f'S{key}'] = smat(Vf, V)
-    return out
+    return dict(core.claddings(Kx, Ky, clad_in, clad_out), kx0=kx0, ky0=ky0,
+                Kx=Kx, Ky=Ky)
 
 
 @pinned
@@ -80,178 +77,9 @@ def _patterned_layer(eps_c, mu_c, Kx, Ky, Vf_inv, omega, thickness,
 _homogeneous_layer = pinned(core.layer_smatrix_homogeneous)
 _diffraction_angles = pinned(core.diffraction_angles)
 _conv_to_grid = pinned(core.conv_to_grid)
-
-
-@pinned
-def _fold(layers, is_bd, Sin, Sout, n2, dtype, device):
-    """Global S-matrix of the layers and claddings by Redheffer star
-    products, carrying each layer's mode-coupling blocks (Cf, Cb)
-    (reference rcwa.py:173-211).  S22 == S11 and S12 == S21 in a layer;
-    Cf = [G; D], Cb = [D; G]."""
-    def dense(i):
-        sol = layers[i]
-        return ([bdp_dense(m) for m in (sol.S11, sol.S21, sol.G, sol.D)]
-                if is_bd[i] else [sol.S11, sol.S21, sol.G, sol.D])
-
-    def S_of(i):
-        s11, s21, _, _ = dense(i)
-        return [s11, s21, s21, s11]
-
-    def C_of(i):
-        _, _, G, D = dense(i)
-        return (torch.cat([G, D]), torch.cat([D, G]))
-
-    if layers:
-        S, C = S_of(0), [C_of(0)]
-    else:
-        eye = torch.eye(n2, dtype=dtype, device=device)
-        S, C = [eye, torch.zeros_like(eye), torch.zeros_like(eye), eye], []
-    for i in range(1, len(layers)):
-        Sn = S_of(i)
-        S_new, t1, t2 = core.redheffer_product(S, Sn)
-        C = core.redheffer_update_modes(C, [C_of(i)], S, Sn, t1, t2)
-        S = S_new
-    if Sin is not None:
-        Sin = [bdp_dense(b) for b in Sin]
-        S_new, t1, t2 = core.redheffer_product(Sin, S)
-        C = core.redheffer_update_modes([], C, Sin, S, t1, t2)
-        S = S_new
-    if Sout is not None:
-        Sout = [bdp_dense(b) for b in Sout]
-        S_new, t1, t2 = core.redheffer_product(S, Sout)
-        C = core.redheffer_update_modes(C, [], S, Sout, t1, t2)
-        S = S_new
-    return S, C
-
-
-def _select_kz(direction, port, kz_in, kz_out):
-    """Numerator and denominator kz by direction and port
-    (reference rcwa.py:377-388)."""
-    if direction == 'forward' and port == 'transmission':
-        return kz_out, kz_in
-    if direction == 'forward' and port == 'reflection':
-        return kz_in, kz_in
-    if direction == 'backward' and port == 'reflection':
-        return kz_out, kz_out
-    return kz_in, kz_out
-
-
-def _zero_where(cond, x):
-    return torch.where(cond, torch.zeros_like(x), x)
-
-
-@pinned
-def _sparams(S, Kx, Ky, clad_in, clad_out, oi, ri, polarization, direction,
-             port, power_norm, evanscent):
-    """S-parameters at the given orders (reference rcwa.py:300-524).  oi,
-    ri: flat order indices; clad_in / clad_out: (eps, mu)."""
-    N = Kx.shape[-1]
-    dev = Kx.device
-    k2t = Kx * Kx + Ky * Ky
-
-    def kz_real(clad, ev_value):
-        """Re kz of a cladding over both blocks; evanescent orders (|Re kz
-        / Im kz| < evanscent) read ev_value(Re kz)."""
-        kzc = csqrt(clad[0] * clad[1] - k2t)
-        ev = torch.abs(kzc.real / kzc.imag) < evanscent
-        kz = torch.where(ev, ev_value(kzc.real), kzc.real)
-        return torch.cat([kz, kz])
-
-    zero = torch.zeros_like
-    t = lambda i: torch.as_tensor(i, device=dev)
-    if polarization in ('xx', 'yx', 'xy', 'yy'):
-        oi_p = t(oi + (N if polarization in ('yx', 'yy') else 0))
-        ri_p = t(ri + (N if polarization in ('xy', 'yy') else 0))
-        norm = 1.
-        if power_norm:
-            kz_in, kz_out = kz_real(clad_in, zero), kz_real(clad_out, zero)
-            kxr = torch.cat([Kx.real, Kx.real])
-            kyr = torch.cat([Ky.real, Ky.real])
-            num_pol, den_pol = {'xx': (kxr, kxr), 'xy': (kxr, kyr),
-                                'yx': (kyr, kxr),
-                                'yy': (kyr, kyr)}[polarization]
-            num_kz, den_kz = _select_kz(direction, port, kz_in, kz_out)
-            norm = torch.sqrt((1 + (num_pol[oi_p] / num_kz[oi_p]) ** 2)
-                              / (1 + (den_pol[ri_p] / den_kz[ri_p]) ** 2))
-            norm = norm * torch.sqrt(num_kz[oi_p] / den_kz[ri_p])
-        block = {'transmission': {'forward': 0, 'backward': 3},
-                 'reflection': {'forward': 1, 'backward': 2}}[port][direction]
-        s = S[block][oi_p, ri_p] * norm
-        return _zero_where(~torch.isfinite(s.real) | ~torch.isfinite(s.imag),
-                           s)
-
-    # ps basis
-    (eps_in, mu_in), (eps_out, mu_out) = clad_in, clad_out
-    idx, o_sign, r_sign, o_k2, r_k2 = {
-        ('forward', 'transmission'): (0, 1., 1., eps_out * mu_out,
-                                      eps_in * mu_in),
-        ('forward', 'reflection'): (1, -1., 1., eps_in * mu_in,
-                                    eps_in * mu_in),
-        ('backward', 'reflection'): (2, 1., -1., eps_out * mu_out,
-                                     eps_out * mu_out),
-        ('backward', 'transmission'): (3, -1., -1., eps_in * mu_in,
-                                       eps_out * mu_out)}[(direction, port)]
-
-    def angles(sel, k2, sign):
-        kxs, kys = Kx[sel], Ky[sel]
-        kt = csqrt(kxs * kxs + kys * kys)
-        kzc = csqrt(k2 - (kxs * kxs + kys * kys))
-        kz = sign * torch.abs(kzc.real)
-        evan = torch.abs(kzc.real / kzc.imag) < evanscent
-        return (torch.atan2(kt.real, kz), torch.atan2(kys.real, kxs.real),
-                evan)
-
-    oi_t, ri_t = t(oi), t(ri)
-    o_inc, o_azi, o_evan = angles(oi_t, o_k2, o_sign)
-    r_inc, r_azi, r_evan = angles(ri_t, r_k2, r_sign)
-    Sb = S[idx]
-    xx = _zero_where(o_evan, Sb[oi_t, ri_t])
-    xy = _zero_where(o_evan, Sb[oi_t, ri_t + N])
-    yx = _zero_where(o_evan, Sb[oi_t + N, ri_t])
-    yy = _zero_where(o_evan, Sb[oi_t + N, ri_t + N])
-    co, so, ci = torch.cos(o_azi), torch.sin(o_azi), torch.cos(o_inc)
-    cr, sr, cri = torch.cos(r_azi), torch.sin(r_azi), torch.cos(r_inc)
-    # real coefficients (the angles are real; reference rcwa.py:466-485)
-    coeff = {
-        'pp': (co / ci * cri * cr, so / ci * cri * cr,
-               co / ci * cri * sr, so / ci * cri * sr),
-        'ps': (co / ci * (-sr), so / ci * (-sr), co / ci * cr, so / ci * cr),
-        'sp': (-so * cri * cr, co * cri * cr, -so * cri * sr, co * cri * sr),
-        'ss': (-so * (-sr), co * (-sr), -so * cr, co * cr),
-    }[polarization]
-    s = coeff[0] * xx + coeff[1] * yx + coeff[2] * xy + coeff[3] * yy
-    s = _zero_where(~torch.isfinite(s.real) | ~torch.isfinite(s.imag), s)
-    if power_norm:
-        kz_in = kz_real(clad_in, zero)
-        # the ps branch keeps |Re kz| for evanescent output orders instead
-        # of zeroing them (reference rcwa.py:490 against 495): kept
-        kz_out = kz_real(clad_out, torch.abs)
-        num_kz, den_kz = _select_kz(direction, port, kz_in, kz_out)
-        s = s * torch.sqrt(num_kz[oi_t] / den_kz[ri_t])
-    # all zero where the reference order is evanescent (rcwa.py:462-464)
-    return _zero_where(r_evan, s)
-
-
-@pinned
-def _source(amp, idx, ps, clad, sign, Kx, Ky):
-    """Incident Fourier amplitudes as a (2N, 1) column; in ps notation
-    turned to xy by the per-order rotation (reference rcwa.py:539-596)."""
-    N = Kx.shape[-1]
-    t = torch.as_tensor(idx, device=amp.device)
-    E = amp.new_zeros(2 * N).index_put((t,), amp[:, 0]) \
-        .index_put((t + N,), amp[:, 1])
-    if ps:
-        k2t = Kx * Kx + Ky * Ky
-        kt = csqrt(k2t)
-        kz = sign * torch.abs(csqrt(clad[0] * clad[1] - k2t).real)
-        inc = torch.atan2(kt.real, kz)
-        azi = torch.atan2(Ky.real, Kx.real)
-        ps2xy = torch.stack([
-            torch.stack([torch.cos(inc) * torch.cos(azi), -torch.sin(azi)]),
-            torch.stack([torch.cos(inc) * torch.sin(azi), torch.cos(azi)]),
-        ]).to(amp.dtype)
-        E = bdp_apply(ps2xy, E[:, None])[:, 0]
-    return E[:, None]
+_global_smatrix = pinned(core.fold)
+_s_parameters = pinned(core.sparams)
+_incident = pinned(core.incident_amplitudes)
 
 
 def _is_scalar_like(v):
@@ -271,6 +99,7 @@ def _pick(value, names, default, what):
 
 
 _DIRECTIONS = {'forward': ('f', 'forward'), 'backward': ('b', 'backward')}
+_POLARIZATIONS = ('xx', 'yx', 'xy', 'yy', 'pp', 'sp', 'ps', 'ss')
 
 
 class rcwa:
@@ -325,16 +154,11 @@ class rcwa:
         self._complex_out = output != 'pair'
         self.stable_eig_grad = bool(stable_eig_grad)
 
-        if avoid_Pinv_instability is True:
-            self.avoid_Pinv_instability = True
-            self.max_Pinv_instability = float(max_Pinv_instability)
-            self.Pinv_instability = []
-            self.Qinv_instability = []
-        else:
-            self.avoid_Pinv_instability = False
-            self.max_Pinv_instability = None
-            self.Pinv_instability = None
-            self.Qinv_instability = None
+        on = avoid_Pinv_instability is True
+        self.avoid_Pinv_instability = on
+        self.max_Pinv_instability = float(max_Pinv_instability) if on else None
+        self.Pinv_instability = [] if on else None
+        self.Qinv_instability = [] if on else None
 
         # simulation parameters (rcwa.py:59-72)
         self.freq = freq
@@ -462,12 +286,24 @@ class rcwa:
 
     def solve_global_smatrix(self):
         """Fold the layers' S-matrices and the claddings' by Redheffer star
-        products, propagating the mode-coupling blocks (rcwa.py:173-211)."""
-        self.S, self.C = _fold(
-            self.layers, self._layer_is_bd,
-            self.Sin if self._has_input_layer else None,
-            self.Sout if self._has_output_layer else None,
-            2 * self.order_N, self._dtype, self._device)
+        products, propagating the mode-coupling blocks (rcwa.py:173-211;
+        ``core.fold``).  S22 == S11 and S12 == S21 in a layer; Cf = [G; D],
+        Cb = [D; G]."""
+        Ss, Cs = [], []
+        for sol, bd in zip(self.layers, self._layer_is_bd):
+            s11, s21, G, D = (bdp_dense(m) if bd else m
+                              for m in (sol.S11, sol.S21, sol.G, sol.D))
+            Ss.append([s11, s21, s21, s11])
+            Cs.append((torch.cat([G, D]), torch.cat([D, G])))
+        if not Ss:
+            eye = torch.eye(2 * self.order_N, dtype=self._dtype,
+                            device=self._device)
+            Ss = [[eye, torch.zeros_like(eye), torch.zeros_like(eye), eye]]
+        Sin = ([bdp_dense(b) for b in self.Sin] if self._has_input_layer
+               else None)
+        Sout = ([bdp_dense(b) for b in self.Sout] if self._has_output_layer
+                else None)
+        self.S, self.C = _global_smatrix(Ss, Cs, Sin, Sout)
 
     # -- extraction -------------------------------------------------------
 
@@ -506,17 +342,14 @@ class rcwa:
         port = _pick(port, {'transmission': ('t', 'transmission'),
                             'reflection': ('r', 'reflection')},
                      'transmission', 'port')
-        if polarization not in ('xx', 'yx', 'xy', 'yy', 'pp', 'sp', 'ps',
-                                'ss'):
-            warnings.warn('Invalid polarization. Set as xx.', UserWarning)
-            polarization = 'xx'
-        oi = core.matching_indices(orders, self.order)
-        ri = core.matching_indices(np.asarray(ref_order).reshape(1, 2),
-                                   self.order)
-        return self._out(_sparams(
-            self.S, self.Kx_norm_dn, self.Ky_norm_dn,
-            (self.eps_in, self.mu_in), (self.eps_out, self.mu_out), oi, ri,
-            polarization, direction, port, power_norm, evanscent))
+        polarization = _pick(polarization, {p: (p,) for p in _POLARIZATIONS},
+                             'xx', 'polarization')
+        return self._out(_s_parameters(
+            self.S, self.Kx_norm_dn.real, self.Ky_norm_dn.real,
+            (self.eps_in, self.mu_in), (self.eps_out, self.mu_out),
+            core.matching_indices(orders, self.order),
+            core.matching_indices(ref_order, self.order), polarization,
+            direction, port, power_norm, evanscent))
 
     # -- sources ----------------------------------------------------------
 
@@ -544,9 +377,10 @@ class rcwa:
         fwd = direction == 'forward'
         clad = ((self.eps_in, self.mu_in) if fwd
                 else (self.eps_out, self.mu_out))
-        self.E_i_vec = _source(amp, core.matching_indices(orders, self.order),
-                               notation == 'ps', clad, 1. if fwd else -1.,
-                               self.Kx_norm_dn, self.Ky_norm_dn)
+        self.E_i_vec = _incident(
+            amp, core.matching_indices(orders, self.order), self.order_N,
+            self.Kx_norm_dn.real, self.Ky_norm_dn.real,
+            clad if notation == 'ps' else None, 1. if fwd else -1.)[:, None]
 
     @property
     def E_i(self):
@@ -575,13 +409,9 @@ class rcwa:
         """k-vectors, the free-space V and the cladding interfaces."""
         ang = ((self.eps_in, self.mu_in) if self.angle_layer == 'input'
                else (self.eps_out, self.mu_out))
-        ox = torch.as_tensor(self.order_x, dtype=self._rdtype,
-                             device=self._device)
-        oy = torch.as_tensor(self.order_y, dtype=self._rdtype,
-                             device=self._device)
         k = _kvectors(
-            self.inc_ang, self.azi_ang, *ang, ox, oy, self.Gx_norm,
-            self.Gy_norm,
+            self.inc_ang, self.azi_ang, *ang, self._r(self.order_x),
+            self._r(self.order_y), self.Gx_norm, self.Gy_norm,
             (self.eps_in, self.mu_in) if self._has_input_layer else None,
             (self.eps_out, self.mu_out) if self._has_output_layer else None)
         self.kx0_norm, self.ky0_norm = k['kx0'], k['ky0']
