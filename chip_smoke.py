@@ -2078,7 +2078,8 @@ def batched_alt_times(torch, tp, ek, smi, eps32, out, times, bounds):
     finally:
         eq.SMALL_SCHUR = keep
 
-    # the same batches through the large route, lane by lane (one run, its
+    # the same batches through the large route, its Schur stage's lanes in
+    # lock step and the other stages lane by lane (one run, its
     # kernels warm from phase 7: host-paced seconds; the small route on the
     # same batch is the composed eig through schur_qr above)
     keep = eq.LARGE_MIN_N
@@ -2093,7 +2094,7 @@ def batched_alt_times(torch, tp, ek, smi, eps32, out, times, bounds):
             ev[1].synchronize()
             t_large = ev[0].elapsed_time(ev[1])
             print(f'    eig_qr on the B = {A.shape[0]}, n = {n} batch through '
-                  f'the large route (lane by lane): {t_large:.1f} ms [{smi}]')
+                  f'the large route: {t_large:.1f} ms [{smi}]')
     finally:
         eq.LARGE_MIN_N = keep
 
@@ -2663,6 +2664,64 @@ def large_route_hold(torch, A, label):
                 eig_err_vs_complex128=d)
 
 
+def lanes_hold(torch, ek, A, label):
+    """The large route's Schur stage on a batch A (B, n, n) as the route
+    calls it, its lanes in lock step, against each lane alone: every
+    lane's T, Z and stats bit for bit, the AED rotations summed over the
+    lanes, and LAUNCHES['schur_ms'] against the profiler's count of the
+    schur_ms kernels.  Returns the record."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from torcwa_tpu_torch.ops import eig_qr as eq, schur_ms as sm
+    from torcwa_tpu_torch.ops.hess_blocked import hessenberg_blocked
+    from torcwa_tpu_torch.utils import timing
+    n, B = A.shape[-1], A.shape[0]
+    cfg = dict(m=eq.large_shifts(n), defl_mult=eq.LARGE_DEFL_MULT)
+    lanes = [hessenberg_blocked(a) for a in A]
+    H = torch.stack([h for h, _ in lanes])
+    Q = torch.stack([q for _, q in lanes])
+
+    def traced(fn):
+        with timing.tracing() as tr:
+            got = fn()
+            torch.cuda.synchronize()
+            c, = [s.counters for s in tr.collect() if s.name == 'eig.schur']
+        return got, {k: int(v) for k, v in c.items()}
+
+    alone = [traced(lambda: sm.schur_ms(H[l], Q[l], return_stats=True,
+                                        **cfg)) for l in range(B)]
+    before = ek.LAUNCHES['schur_ms']
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        (T, Z, st), c = traced(lambda: sm.schur_ms(H, Q, return_stats=True,
+                                                   **cfg))
+    launches = ek.LAUNCHES['schur_ms'] - before
+    kernels = sum(e.count for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and '::ms_' in e.key)
+    same = [bool(torch.equal(torch.view_as_real(T[l]),
+                             torch.view_as_real(Tl))
+                 and torch.equal(torch.view_as_real(Z[l]),
+                                 torch.view_as_real(Zl))
+                 and tuple(st[l]) == tuple(stl))
+            for l, ((Tl, Zl, stl), _) in enumerate(alone)]
+    rot = sum(cl['aed_rotations'] for _, cl in alone)
+    print(f'  {label}, schur_ms on B = {B} in lock step at n = {n}: lanes '
+          f'equal the lone calls bit for bit {same}, stats '
+          f'{[tuple(int(x) for x in s) for s in st]}; AED rotations '
+          f'{c["aed_rotations"]} (lone calls {rot}); sweeps {c["sweeps"]} '
+          f'over {c["lockstep_sweeps"]} loop sweeps; {launches} launches '
+          f'counted, {kernels} in the profile')
+    check(all(same) and c['aed_rotations'] == rot
+          and all(s[0] == 0 for s in st),
+          f'{label}: lock-step lanes == lone calls bit for bit (T, Z, '
+          'stats, AED rotations), converged')
+    check(launches == kernels, f'{label}: LAUNCHES counts the schur_ms '
+          'kernels the profiler sees')
+    return dict(n=n, lanes=B, bits_equal=same,
+                aed_rotations=c['aed_rotations'], aed_rotations_alone=rot,
+                sweeps=c['sweeps'], lockstep_sweeps=c['lockstep_sweeps'],
+                launches=launches, profiled_kernels=kernels)
+
+
 def launched(torch, ek, label, kernels, out):
     """Read the launch counts after a path; check that the route's
     kernels ran and no other eig kernel did; keep them under `label`."""
@@ -2769,7 +2828,8 @@ def sweep_phase(torch, tp, ek, smi, dev, out):
     B = 31) and order 15 at 3 (n = 1922, the large route), each against
     the complex128 oracle; shard_sweep and sweep_and_grad at order 4 on a
     mesh of the card and of the card twice; the large route's kernels
-    against their plain versions at n = 1922."""
+    against their plain versions at n = 1922, and its Schur stage on two
+    wavelengths in lock step against each alone."""
     from torcwa_tpu_torch.parallel import (shard_sweep, sweep_and_grad,
                                            sweep_mesh)
     ex1 = load_example('example1_wavelength_sweep')
@@ -2847,6 +2907,12 @@ def sweep_phase(torch, tp, ek, smi, dev, out):
             + (1. - geom300)
         A = layer_matrix(torch, tp, spec, eps550, 550.)
     hold = large_route_hold(torch, A, f'example1 n = {n15}')
+    with torch.no_grad():
+        A2 = torch.stack([layer_matrix(
+            torch, tp, spec, geom300 * ex1.a_si(str(dev)).eps(lam).to(
+                torch.complex64) + (1. - geom300), lam)
+            for lam in (400., 700.)])
+    out['lanes'] = lanes_hold(torch, ek, A2, f'example1 n = {n15}')
     A4 = layer_matrix(torch, tp, tp.StackSpec(o4, ex1.L, 1),
                       geom * ex1.a_si(str(dev)).eps(550.)
                       .to(torch.complex64) + (1. - geom), 550.)

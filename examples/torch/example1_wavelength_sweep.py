@@ -12,7 +12,8 @@ Here the permittivity is evaluated on the batch of wavelengths at once
 and makes one raster a wavelength, [B, 1, nx, ny], for one batched
 ``solve_stack_pair``: at small order the whole sweep is one batch through
 the eig kernels' small route; from order 15 (2N = 1922, the large route,
-lane by lane) it runs in chunks of 2 wavelengths, as the twin does.
+whose Schur stage runs a chunk's lanes in lock step) it runs in chunks of
+2 wavelengths, as the twin does.
 
     python3 examples/torch/example1_wavelength_sweep.py
 

@@ -16,7 +16,9 @@ port's spans (``hess_idle_share``, ``refine_ms``, ``schur_sweeps``,
 by what the host did, the tracer's reports of set-up and of the spans
 phase, and, on the large route, the AED pass: the ``ms_aed`` launches'
 device time in the profiled window per launch and per rotation of the
-window QR (the ``eig.schur`` spans' ``aed_rotations`` in that phase).
+window QR (the ``eig.schur`` spans' ``aed_rotations`` in that phase) of
+one lane's chain, with the lanes in flight (``sweeps`` over
+``lockstep_sweeps``).
 
 With ``--cost-units K`` it then runs six blocks of K units each, tracer
 off, on, on, off, off, on, and prints each block's mean unit time (host
@@ -56,8 +58,11 @@ def _units(run, tracer_on, k, timing, sync, device):
 
 
 def aed_pass(trace, schur_spans):
-    """ms_aed's device time in the profiled window: launches, rotations
-    and the time a launch (ms) and a rotation (ns); None off the large
+    """ms_aed's device time in the profiled window: launches, rotations,
+    the lanes in flight (the spans' sweeps over their lock-step sweeps, 1
+    where a span does not count these) and the time a launch (ms) and a
+    rotation of one lane's chain (ns: the time over the rotations a lane in
+    flight, since a launch runs its lanes side by side); None off the large
     route."""
     lo, hi = trace.window
     ns = [min(b, hi) - max(a, lo) for a, b, name in trace.device_ops
@@ -65,9 +70,13 @@ def aed_pass(trace, schur_spans):
     rot = sum(s.counters.get('aed_rotations', 0) for s in schur_spans)
     if not ns or not rot:
         return None
-    return {'launches': len(ns), 'rotations': rot,
+    sweeps = sum(s.counters.get('sweeps', 0) for s in schur_spans)
+    steps = sum(s.counters.get('lockstep_sweeps', s.counters.get('sweeps', 0))
+                for s in schur_spans)
+    lanes = sweeps / steps if steps else 1.
+    return {'launches': len(ns), 'rotations': rot, 'lanes_in_flight': lanes,
             'ms_a_pass': sum(ns) / len(ns) / 1e6,
-            'ns_a_rotation': sum(ns) / rot}
+            'ns_a_rotation': sum(ns) * lanes / rot}
 
 
 def main(argv=None):

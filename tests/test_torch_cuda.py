@@ -234,6 +234,7 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev, bad):
 from torcwa_tpu_torch.ops import schur_ms as sm  # noqa: E402
 from torcwa_tpu_torch.ops import vec_blocked as vb  # noqa: E402
 from torcwa_tpu_torch.ops.hess_blocked import hessenberg_blocked  # noqa: E402
+from torcwa_tpu_torch.utils import timing  # noqa: E402
 
 # (n, m, kw, wb): one window at n = 96, overlapping windows at 300
 LARGE = [(96, 8, 24, 128), (300, 8, 24, 128)]
@@ -321,6 +322,65 @@ def test_schur_ms_kernels_match_plain(dev, n, m, kw, wb):
     assert 0.5 * stp[1] <= st[1] <= 2 * stp[1]
 
 
+@pytest.mark.parametrize('n,m,kw,wb', LARGE)
+def test_schur_ms_lanes_in_lock_step_match_each_lane_alone(dev, n, m, kw, wb):
+    # a batch of three through one lock-step loop: every lane's T, Z, stats
+    # and AED rotations those of the lane alone, bit for bit; a nearly
+    # triangular lane beside two random ones, so that lanes leave the loop
+    # many sweeps apart; the loop's sweeps are the slowest lane's
+    lanes = [hessenberg_blocked(_rand1(dev, n, 60 + l), panel=32)
+             for l in range(2)]
+    tri = torch.triu(_rand1(dev, n, 62)) + torch.diag(
+        1e-3 * _rand1(dev, n, 63).diagonal(-1).real.to(torch.complex64), -1)
+    lanes.insert(1, (tri, torch.eye(n, dtype=tri.dtype, device=dev)))
+    H = torch.stack([h for h, _ in lanes])
+    Q = torch.stack([q for _, q in lanes])
+    cfg = dict(m=m, kw=kw, wb=wb)
+    with timing.tracing() as tr:
+        T, Z, st = sm.schur_ms(H, Q, return_stats=True, **cfg)
+        alone = [sm.schur_ms(H[l], Q[l], return_stats=True, **cfg)
+                 for l in range(3)]
+        torch.cuda.synchronize()
+        spans = tr.collect()
+    for l, (Tl, Zl, stl) in enumerate(alone):
+        assert torch.equal(torch.view_as_real(T[l]), torch.view_as_real(Tl))
+        assert torch.equal(torch.view_as_real(Z[l]), torch.view_as_real(Zl))
+        assert tuple(st[l]) == tuple(stl) and stl[0] == 0
+    batch, *lone = [s.counters for s in spans if s.name == 'eig.schur']
+    assert int(batch['aed_rotations']) == sum(int(c['aed_rotations'])
+                                              for c in lone)
+    assert batch['lockstep_sweeps'] == max(s[1] for s in st)
+    assert batch['sweeps'] == sum(s[1] for s in st)
+    assert max(s[1] for s in st) >= 2 * st[1][1]
+
+
+def test_schur_ms_launch_count_is_the_profilers(dev, monkeypatch):
+    # a batch of two whose lanes' chase windows take other register tiles
+    # in one call (n = 280: a last window of 88 rows; lane 1 split at row
+    # 100, so its windows start 64 rows lower): LAUNCHES['schur_ms'] counts
+    # each kernel the profiler sees, more than the calls into C
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    n, cfg = 280, dict(m=8, kw=24, wb=128)
+    lanes = [hessenberg_blocked(_rand1(dev, n, 70 + l), panel=32)
+             for l in range(2)]
+    lanes[1][0][100, 99] = 0
+    H = torch.stack([h for h, _ in lanes])
+    Q = torch.stack([q for _, q in lanes])
+    sm.schur_ms(H, Q, **cfg)                    # built, shared memory set
+    calls, launch = [], sm._launch
+    monkeypatch.setattr(sm, '_launch', lambda *a: (calls.append(a[0]),
+                                                   launch(*a))[1])
+    torch.cuda.synchronize()
+    before = ek.LAUNCHES['schur_ms']
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        sm.schur_ms(H, Q, **cfg)
+        torch.cuda.synchronize()
+    kernels = sum(e.count for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and '::ms_' in e.key)
+    assert ek.LAUNCHES['schur_ms'] - before == kernels > len(calls)
+
+
 # (kw, rows of the window): uncut at kw = 64 and 24, and cut by lo to 39
 # and 20 rows, so that a lane's second slot runs (kwe > 32) and does not
 AED_PASSES = [(64, 64), (64, 39), (64, 20), (24, 24)]
@@ -342,14 +402,14 @@ def _aed_pass(dev, kw, rows, exc, small_spike):
     if small_spike:
         s = max(hi - kw + 1, lo + 1)
         H[s, s - 1] *= 1e-6 * H.abs().max() / H[s, s - 1].abs()
-    ops = sm._CudaOps(H.clone(), Z.clone(), m, kw, 128, mult)
-    got = ops.scan_and_aed(n - 1, exc)
+    ops = sm._CudaOps(H.clone()[None], Z.clone()[None], m, kw, 128, mult)
+    got = tuple(ops.scan([0], [n - 1], [exc], True)[0])
     torch.cuda.synchronize()
     s, kwe, hi_new, shifts, _ = sm.aed_plain(H.cpu(), lo, hi, m, kw, mult,
                                              exc)
     e = s + kwe
     _, _, hi_m, its, rot = sm._mini_schur(H[s:e, s:e].cpu(), 3 * kw + 40)
-    Lp = ops.Lp[:kwe * kwe].view(kwe, kwe)
+    Lp = ops.Lp[0, :kwe * kwe].view(kwe, kwe)
     # the block ms_aed writes where it deflates: [beta e1 | W] taken
     # through Lp (the deflated lanes' spike entries and the known zeros
     # set to 0 there); elsewhere H as it was
@@ -361,11 +421,11 @@ def _aed_pass(dev, kw, rows, exc, small_spike):
     eye = torch.eye(kwe, dtype=Lp.dtype, device=dev)
     return dict(
         got=got, want=(lo, hi, s, kwe, hi_new), rows=rows,
-        qr=ops.info[6:8].tolist() + [int(ops.aed_rotations)],
+        qr=ops.info[0, 6:8].tolist() + [int(ops.aed_rotations)],
         qr_plain=[hi_m, its, rot], deflated=hi - hi_new,
         shifts=float((ops.shifts.cpu() - shifts).abs().max()) / scale,
         unitarity=float((Lp.mH @ Lp - eye).abs().max()),
-        block=float((ops.H - want).abs().max()) / scale)
+        block=float((ops.H[0] - want).abs().max()) / scale)
 
 
 @pytest.mark.parametrize('small_spike', [False, True])

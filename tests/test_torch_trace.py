@@ -135,7 +135,7 @@ def test_one_adam_step_gives_the_span_tree_with_its_unit():
 def test_large_route_spans_a_panel_at_a_time(monkeypatch):
     # hessenberg_blocked at n = 30 in panels of 8: four panels, a columns
     # span and an update span each; the route patched down to n = 32 runs
-    # both lanes of a batch through it and schur_ms
+    # both lanes of a batch through it, then one schur_ms over the batch
     A = _rand((2, 64, 64), 3)
     with timing.tracing() as tr:
         hessenberg_blocked(A[0, :30, :30], panel=8)
@@ -149,10 +149,10 @@ def test_large_route_spans_a_panel_at_a_time(monkeypatch):
     eig, = [s for s in tr.records if s.name == 'eig']
     assert eig.meta == dict(n=64, batch=2, route='large')
     kids = [s.name for s in tr.records if s.parent is eig]
-    assert kids == ['eig.hess', 'eig.schur', 'eig.vectors'] * 2 + [
-        'eig.refine']
-    assert all(s.counters['matrices'] == 1 for s in tr.records
-               if s.name == 'eig.schur')
+    assert kids == ['eig.hess'] * 2 + ['eig.schur', 'eig.vectors',
+                                       'eig.refine']
+    schur, = [s for s in tr.records if s.name == 'eig.schur']
+    assert schur.counters['matrices'] == 2
 
 
 def test_sweeps_counter_is_each_schur_stages_own_count():
@@ -168,7 +168,8 @@ def test_sweeps_counter_is_each_schur_stages_own_count():
         assert large.counters['sweeps'] == st[1]
         tr.collect()
     assert [s.name for s in tr.records] == ['eig.schur'] * 2
-    assert large.counters == {'sweeps': st[1], 'matrices': 1}
+    assert large.counters == {'sweeps': st[1], 'matrices': 1,
+                              'lockstep_sweeps': st[1]}
     assert small.counters == {'sweeps': int(stb[1].sum()), 'matrices': 3}
     assert st[1] > 0 and int(stb[1].min()) > 0
 

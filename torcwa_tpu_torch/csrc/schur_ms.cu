@@ -1,5 +1,6 @@
-// Windowed multishift Schur QR with aggressive early deflation (AED) for ONE
-// large upper Hessenberg matrix: H = Z T Z^H, H and Z in device memory.
+// Windowed multishift Schur QR with aggressive early deflation (AED) for a
+// batch of large upper Hessenberg matrices, each on its own: H = Z T Z^H, H
+// and Z in device memory.
 //
 // Replaces the TPU kernel torcwa_tpu/ops/eig_qr_hbm.py::_kernel_hbm (public
 // entry schur_qr_hbm) with its _mini_schur, and keeps its rules:
@@ -22,7 +23,17 @@
 //    k = lo with (H[lo,lo] - sigma_i, H[lo+1,lo]).
 // The sweep loop (nibble rule, stall counter, window schedule, budget) runs
 // on the host in ops/schur_ms.py, which launches the functions below once
-// or a few times per sweep and reads `info` back once per sweep.
+// or a few times per sweep and reads `info` back once per sweep.  The lanes
+// of a batch (its matrices) go through the loop in lock step: each launch
+// covers every lane that takes that step of the sweep, one block (or one
+// lane's strips of the slab products) a lane, as listed in the launch's
+// lane table (Lanes), which carries the host's per-lane decisions by value
+// among the launch's parameters.  So the lanes' serial kernels run side by
+// side on as many SMs and one read of `info` a sweep serves them all; a
+// lane's blocks do what its own launch would do, operation for operation.
+// Lanes that need another template, or more than kMaxLanes of them, take
+// launches of their own, so each entry point reports in *launches the
+// kernels it launched.
 //
 // Not carried over, because they exist only for the TPU's compiler: the
 // padding to multiples of 128, the (1, T, 128) band layout, the one-hot
@@ -32,21 +43,22 @@
 // windows; H, Z and the small unitaries are complex64, row-major.
 //
 // Design for an H100:
-//  * ms_band_scan: one block; two integer max-reductions over the band.
-//  * ms_aed: one block of four warps, the window W in the bordered matrix
-//    [spike | T] and its Schur vectors in the accumulated transform, in
-//    shared memory (68,632 bytes at kw = 64; aed_warp.cuh).  Warp 0 chases
+//  * ms_band_scan: one block a lane; two integer max-reductions over the
+//    band.
+//  * ms_aed: one block of four warps a lane, the window W in the bordered
+//    matrix [spike | T] and its Schur vectors in the accumulated transform,
+//    in shared memory (68,632 bytes at kw = 64; aed_warp.cuh).  Warp 0 chases
 //    the window's single-shift QR, warp 1 forms each rotation one ahead of
 //    it, warps 2-3 apply a sweep's rotations to the Schur vectors a sweep
 //    behind.  It writes the transformed diagonal block and spike column
 //    back to H itself, with the known zeros exact, the kwe x kwe transform
 //    Lp for the off-diagonal slabs, and adds the window QR's rotations to a
 //    running count in `info`.
-//  * ms_trailing_shifts (aed=False): one warp, the m x m block in shared
-//    memory; it fills `info` and `shifts` where ms_aed would.
-//  * ms_chase: one block per window; a window of up to 169 rows is staged
-//    in shared memory for the chase and written back at its end, a wider
-//    one is worked in device memory.  At a step the m rotations touch
+//  * ms_trailing_shifts (aed=False): one warp a lane, the m x m block in
+//    shared memory; it fills `info` and `shifts` where ms_aed would.
+//  * ms_chase: one block per window and lane; a window of up to 169 rows is
+//    staged in shared memory for the chase and written back at its end, a
+//    wider one is worked in device memory.  At a step the m rotations touch
 //    disjoint row pairs and disjoint column pairs and their parameters are
 //    known from the step before, so all row rotations of the H window run
 //    in parallel, then all column rotations: three barriers per step.  A
@@ -71,7 +83,8 @@
 //    it writes any of it, takes P in double-buffered tiles by cp.async and
 //    keeps a register tile of up to 8 x 4 outputs a thread.
 //
-// What bounds it on an H100: the chase runs in one block, so on one SM.
+// What bounds it on an H100: the chase runs in one block a lane, so on one
+// SM a lane.
 // Worked in device memory a step moves ~m (2 wb x 32 B in the row phase +
 // wb x 128 B in the column phase, whose 16-byte accesses fetch whole
 // 32-byte sectors), ~0.5 MB at m = 24, wb = 128; hence the narrow window
@@ -86,6 +99,8 @@
 // complex multiply-adds per window, 0.86 GFLOP at n = 3362, wb = 128: 13
 // us at the 67 TFLOP/s FFMA rate), ~200 strips of 32 at that size, 1.5
 // a streaming multiprocessor.
+
+#include <algorithm>
 
 #include "aed_warp.cuh"
 #include "ms_shifts.cuh"
@@ -102,6 +117,20 @@ constexpr int kMaxM = 64;     // shifts per sweep
 constexpr int kMaxKw = kAedMaxKw;  // AED window
 constexpr int kMaxW = 256;    // order of a slab transform (chase window)
 
+// A launch's lanes: entry e works on matrix v[e][0] of the batch with the
+// kernel's own parameters in v[e][1..]; the host fills the table and it
+// travels by value among the launch's parameters (read in place, never
+// copied to local memory: __grid_constant__), so no copy precedes a launch.
+// A batch's matrices (H, Z) and each lane's scratch follow one another in
+// memory.  The C entry points take the entries from a host array and
+// launch kMaxLanes of them at a time.
+constexpr int kMaxLanes = 32;
+constexpr int kLaneFields = 8;
+struct Lanes {
+  int count;
+  int v[kMaxLanes][kLaneFields];
+};
+
 // info[]: what the host reads back once per sweep (the first five), and
 // the AED window QR's rotations summed over the launches (ops/schur_ms.py
 // mirrors I_ROT and I_COUNT)
@@ -112,11 +141,16 @@ enum { I_LO = 0, I_HI, I_S, I_KWE, I_HINEW, I_KU, I_HIM, I_MINI_IT, I_ROT,
 // band scan
 // ---------------------------------------------------------------------------
 
+// block e: lane v[e][0], its active block at or above hi_top = v[e][1]
 __global__ void __launch_bounds__(kScanThreads)
-ms_band_scan(const float2* __restrict__ H, int n, int hi_top, float defl_mult,
-             int* __restrict__ info) {
+ms_band_scan(const float2* __restrict__ Hb, int n,
+             const __grid_constant__ Lanes lanes, float defl_mult,
+             int* __restrict__ info_b) {
   __shared__ int red[33];
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, lane = lanes.v[blockIdx.x][0];
+  const int hi_top = lanes.v[blockIdx.x][1];
+  const float2* const H = Hb + (size_t)lane * n * n;
+  int* const info = info_b + lane * I_COUNT;
   auto alive = [&](int c) {  // subdiagonal H[c+1, c]
     return sub_alive(H[(size_t)c * n + c], H[(size_t)(c + 1) * n + c + 1],
                      H[(size_t)(c + 1) * n + c], defl_mult);
@@ -142,13 +176,20 @@ ms_band_scan(const float2* __restrict__ H, int n, int hi_top, float defl_mult,
 // The AED body is aed_window_warp of aed_warp.cuh with its rotations formed
 // ahead of the chase (schur_qr_baed.cu runs it with the one-warp schedule,
 // inside its own sweep loop); this launch adds what the host loop needs: the
-// kwe x kwe transform Lp for the slab products and the info record.
+// kwe x kwe transform Lp for the slab products and the info record.  Block
+// e: lane v[e][0], an exceptional sweep where v[e][1] != 0; a lane's Lp
+// takes kw x kw elements, its shifts m.
 __global__ void __launch_bounds__(kAedThreads)
-ms_aed(float2* __restrict__ H, int n, int* __restrict__ info, int exc, int m,
-       int kw, float defl_mult, float2* __restrict__ Lp,
-       float2* __restrict__ shifts) {
+ms_aed(float2* __restrict__ Hb, int n, int* __restrict__ info_b,
+       const __grid_constant__ Lanes lanes, int m, int kw, float defl_mult,
+       float2* __restrict__ Lp_b, float2* __restrict__ shifts_b) {
   extern __shared__ float2 sm[];
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, lane = lanes.v[blockIdx.x][0];
+  const int exc = lanes.v[blockIdx.x][1];
+  float2* const H = Hb + (size_t)lane * n * n;
+  int* const info = info_b + lane * I_COUNT;
+  float2* const Lp = Lp_b + (size_t)lane * kw * kw;
+  float2* const shifts = shifts_b + (size_t)lane * m;
   const int lo = info[I_LO], hi = info[I_HI];
   if (hi <= 0) {
     if (tid == 0) {
@@ -175,10 +216,17 @@ ms_aed(float2* __restrict__ H, int n, int* __restrict__ info, int exc, int m,
 // shifts without AED: eigenvalues of the trailing m x m block
 // ---------------------------------------------------------------------------
 
+// block e: lane v[e][0], an exceptional sweep where v[e][1] != 0
 __global__ void __launch_bounds__(32)
-ms_trailing_shifts(const float2* __restrict__ H, int n, int* __restrict__ info,
-                   int exc, int m, float2* __restrict__ shifts) {
+ms_trailing_shifts(const float2* __restrict__ Hb, int n,
+                   int* __restrict__ info_b,
+                   const __grid_constant__ Lanes lanes, int m,
+                   float2* __restrict__ shifts_b) {
   extern __shared__ float2 sm[];
+  const int lane = lanes.v[blockIdx.x][0], exc = lanes.v[blockIdx.x][1];
+  const float2* const H = Hb + (size_t)lane * n * n;
+  int* const info = info_b + lane * I_COUNT;
+  float2* const shifts = shifts_b + (size_t)lane * m;
   const int lo = info[I_LO], hi = info[I_HI];
   if (threadIdx.x == 0) {
     info[I_S] = 0; info[I_KWE] = 0; info[I_HINEW] = hi; info[I_KU] = 0;
@@ -265,16 +313,26 @@ __device__ __forceinline__ void form_window_unitary(
 // after the window (rs, then rc); U is formed from them at the end, in the
 // window's shared memory when staged, else in U itself.  kStaged is a
 // template parameter so that the staged kernel's accesses compile to
-// shared-memory instructions.
+// shared-memory instructions.  Block e: lane v[e][0], the window (a, wb,
+// tcur, t_end) = v[e][1..4] on the active block (lo, hi) = v[e][5..6]; a
+// lane's U lies us elements after the one before, its shifts m, its carries
+// 2m.
 template <bool kStaged>
 __global__ void __launch_bounds__(kChaseThreads)
-ms_chase(float2* __restrict__ H, int n, float2* __restrict__ U, int a, int wb,
-         int tcur, int t_end, int lo, int hi, int m,
-         const float2* __restrict__ shifts, float2* __restrict__ xy) {
+ms_chase(float2* __restrict__ Hb, int n, float2* __restrict__ Ub, size_t us,
+         const __grid_constant__ Lanes lanes, int m,
+         const float2* __restrict__ shifts_b, float2* __restrict__ xy_b) {
   extern __shared__ float2 sm[];
   __shared__ float2 s_x[kMaxM], s_y[kMaxM];
   __shared__ unsigned char s_act[kMaxM];
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int* const p = lanes.v[blockIdx.x];
+  const int a = p[1], wb = p[2], tcur = p[3], t_end = p[4], lo = p[5],
+            hi = p[6];
+  float2* const H = Hb + (size_t)p[0] * n * n;
+  float2* const U = Ub + (size_t)p[0] * us;
+  const float2* const shifts = shifts_b + (size_t)p[0] * m;
+  float2* const xy = xy_b + (size_t)p[0] * 2 * m;
   float2* const Hg = H + (size_t)a * n + a;
   float2* const Hw = kStaged ? sm : Hg;
   const int ldh = kStaged ? wb + 1 : n;
@@ -418,23 +476,41 @@ constexpr int kSlabTx = kSlabStrip / kSlabPer;    // 8
 constexpr int kSlabTy = kSlabThreads / kSlabTx;   // 32; P's rows ty + 32 r
 constexpr int kSlabKT = 16;                       // depth of a tile of P
 
-// Up to three slab products with one P in one launch, blocks [0, nb0) on
-// s0, the next nb1 on s1, the rest on s2.  A block stages its whole strip
-// (w x kSlabStrip, k-major) before it writes any of it, so the products
-// are in place; P comes in tiles of kSlabKT columns, double-buffered with
-// cp.async, zero past row w.  Thread (tx, ty) keeps a register tile of RT
-// rows i = ty + 32 r of P by kSlabPer strip entries j = tx + 8 c: each value
-// it loads from shared memory feeds RT or kSlabPer complex multiply-adds.
-// Every output sums over k in ascending order.
+// The three slab products of a transform P (w x w, leading dimension ldp)
+// at row a of each lane in one launch (the sizes of a block's strip follow
+// RT; the host launches the lanes of each RT apart):
+//   X[a:a+w, a+w:n] <- P X[a:a+w, a+w:n]   (H, left)
+//   X[0:a, a:a+w]   <- X[0:a, a:a+w] P^H   (H, right)
+//   Z[0:nz, a:a+w]  <- Z[0:nz, a:a+w] P^H  (Z, right).
+// Entry e: lane v[e][0], (a, w, ldp) = v[e][1..3], its blocks from v[e][4],
+// v[e][5..7] on the three slabs in turn; a lane's P lies ps elements after
+// the one before, its H n ldh, its Z nz ldz.  A block stages its whole
+// strip (w x kSlabStrip, k-major) before it writes any of it, so the
+// products are in place; P comes in tiles of kSlabKT columns,
+// double-buffered with cp.async, zero past row w.  Thread (tx, ty) keeps a
+// register tile of RT rows i = ty + 32 r of P by kSlabPer strip entries j =
+// tx + 8 c: each value it loads from shared memory feeds RT or kSlabPer
+// complex multiply-adds.  Every output sums over k in ascending order.
 template <int RT>
 __global__ void __launch_bounds__(kSlabThreads)
-ms_apply_slabs(Slab s0, Slab s1, Slab s2, int nb0, int nb1, int a, int w,
-               const float2* __restrict__ P, int ldp) {
+ms_apply_slabs(float2* __restrict__ Hb, int ldh, float2* __restrict__ Zb,
+               int ldz, int n, int nz, const float2* __restrict__ Pb,
+               size_t ps, const __grid_constant__ Lanes lanes) {
   extern __shared__ float2 sm[];
   constexpr int kRows = RT * kSlabTy;
+  int ent = 0;  // the lane entry whose blocks hold this one
+  while ((int)blockIdx.x >= lanes.v[ent][4] + lanes.v[ent][5] +
+                                lanes.v[ent][6] + lanes.v[ent][7])
+    ++ent;
+  const int* const p = lanes.v[ent];
+  const int a = p[1], w = p[2], ldp = p[3], nb0 = p[5], nb1 = p[6];
+  float2* const H = Hb + (size_t)p[0] * n * ldh;
+  const float2* const P = Pb + (size_t)p[0] * ps;
+  const Slab s0 = {H, ldh, 1, a + w, n}, s1 = {H, ldh, 0, 0, a},
+             s2 = {Zb + (size_t)p[0] * nz * ldz, ldz, 0, 0, nz};
   float2* const Xs = sm;                          // Xs[k kSlabLd + j]
   float2* const Pt = sm + (size_t)w * kSlabLd;    // [2][kSlabKT][kRows]
-  const int b0 = blockIdx.x;
+  const int b0 = (int)blockIdx.x - p[4];
   const Slab sl = b0 < nb0 ? s0 : (b0 < nb0 + nb1 ? s1 : s2);
   const int b = b0 < nb0 ? b0 : (b0 < nb0 + nb1 ? b0 - nb0 : b0 - nb0 - nb1);
   const int tid = threadIdx.x, tx = tid % kSlabTx, ty = tid / kSlabTx;
@@ -527,107 +603,209 @@ ms_apply_slabs(Slab s0, Slab s1, Slab s2, int nb0, int nb1, int a, int w,
   }
 }
 
-template <int RT>
-cudaError_t launch_slabs(const Slab* sl, const int* nb, int a, int w,
-                         const float2* P, int ldp, cudaStream_t stream) {
-  const size_t smem = ((size_t)w * kSlabLd + 2 * kSlabKT * RT * kSlabTy) *
-                      sizeof(float2);
-  cudaError_t err = set_smem(ms_apply_slabs<RT>, smem);
-  if (err != cudaSuccess) return err;
-  ms_apply_slabs<RT><<<nb[0] + nb[1] + nb[2], kSlabThreads, smem, stream>>>(
-      sl[0], sl[1], sl[2], nb[0], nb[1], a, w, P, ldp);
-  return cudaGetLastError();
+// The error of the launch just made, and one more in *launches if it went.
+cudaError_t counted(int* launches) {
+  const cudaError_t err = cudaGetLastError();
+  if (err == cudaSuccess) ++*launches;
+  return err;
 }
+
+// The `count` entries of `rec` (`fields` ints each, from the host) whose
+// key(entry) is k, for k = 0 .. nkeys - 1 in turn, kMaxLanes of them a
+// launch(k, table); a kind of entry that none has launches nothing.
+template <class Key, class Launch>
+cudaError_t over_lanes(const int* rec, int count, int fields, int nkeys,
+                       Key key, Launch launch) {
+  if (count < 0 || fields < 1 || fields > kLaneFields)
+    return cudaErrorInvalidValue;
+  for (int k = 0; k < nkeys; ++k) {
+    Lanes t;
+    t.count = 0;
+    for (int e = 0; e <= count; ++e) {
+      if (t.count == kMaxLanes || (e == count && t.count > 0)) {
+        const cudaError_t err = launch(k, t);
+        if (err != cudaSuccess) return err;
+        t.count = 0;
+      }
+      if (e == count || key(rec + (size_t)e * fields) != k) continue;
+      for (int f = 0; f < kLaneFields; ++f)
+        t.v[t.count][f] = f < fields ? rec[(size_t)e * fields + f] : 0;
+      ++t.count;
+    }
+  }
+  return cudaSuccess;
+}
+
+int one_kind(const int*) { return 0; }
 
 }  // namespace
 
-extern "C" int torcwa_ms_band_scan_c64(const void* H, int n, int hi_top,
-                                       float defl_mult, void* info,
-                                       void* stream) {
-  ms_band_scan<<<1, kScanThreads, 0, (cudaStream_t)stream>>>(
-      (const float2*)H, n, hi_top, defl_mult, (int*)info);
-  return (int)cudaGetLastError();
+// rec: (lane, hi_top) a lane
+extern "C" int torcwa_ms_band_scan_c64(const void* H, int n, const int* rec,
+                                       int count, float defl_mult, void* info,
+                                       int* launches, void* stream) {
+  *launches = 0;
+  return (int)over_lanes(rec, count, 2, 1, one_kind,
+                         [&](int, const Lanes& t) {
+    ms_band_scan<<<t.count, kScanThreads, 0, (cudaStream_t)stream>>>(
+        (const float2*)H, n, t, defl_mult, (int*)info);
+    return counted(launches);
+  });
 }
 
-extern "C" int torcwa_ms_aed_c64(void* H, int n, void* info, int exc, int m,
-                                 int kw, float defl_mult, void* Lp,
-                                 void* shifts, void* stream) {
+// rec: (lane, exc) a lane
+extern "C" int torcwa_ms_aed_c64(void* H, int n, void* info, const int* rec,
+                                 int count, int m, int kw, float defl_mult,
+                                 void* Lp, void* shifts, int* launches,
+                                 void* stream) {
+  *launches = 0;
   if (kw < 1 || kw > kMaxKw || m < 1 || m > kMaxM)
     return (int)cudaErrorInvalidValue;
   const size_t smem = aed_warp_smem_elems(kw) * sizeof(float2);
   cudaError_t err = set_smem(ms_aed, smem);
   if (err != cudaSuccess) return (int)err;
-  ms_aed<<<1, kAedThreads, smem, (cudaStream_t)stream>>>(
-      (float2*)H, n, (int*)info, exc, m, kw, defl_mult, (float2*)Lp,
-      (float2*)shifts);
-  return (int)cudaGetLastError();
+  return (int)over_lanes(rec, count, 2, 1, one_kind,
+                         [&](int, const Lanes& t) {
+    ms_aed<<<t.count, kAedThreads, smem, (cudaStream_t)stream>>>(
+        (float2*)H, n, (int*)info, t, m, kw, defl_mult, (float2*)Lp,
+        (float2*)shifts);
+    return counted(launches);
+  });
 }
 
+// rec: (lane, exc) a lane
 extern "C" int torcwa_ms_trailing_shifts_c64(const void* H, int n, void* info,
-                                             int exc, int m, void* shifts,
+                                             const int* rec, int count, int m,
+                                             void* shifts, int* launches,
                                              void* stream) {
+  *launches = 0;
   if (m < 1 || m > kMaxM) return (int)cudaErrorInvalidValue;
   const size_t smem =
       shift_block_elems(m) * sizeof(float2) + (size_t)m * sizeof(float);
   cudaError_t err = set_smem(ms_trailing_shifts, smem);
   if (err != cudaSuccess) return (int)err;
-  ms_trailing_shifts<<<1, 32, smem, (cudaStream_t)stream>>>(
-      (const float2*)H, n, (int*)info, exc, m, (float2*)shifts);
-  return (int)cudaGetLastError();
+  return (int)over_lanes(rec, count, 2, 1, one_kind,
+                         [&](int, const Lanes& t) {
+    ms_trailing_shifts<<<t.count, 32, smem, (cudaStream_t)stream>>>(
+        (const float2*)H, n, (int*)info, t, m, (float2*)shifts);
+    return counted(launches);
+  });
 }
 
-extern "C" int torcwa_ms_chase_c64(void* H, int n, void* U, int a, int wb,
-                                   int tcur, int t_end, int lo, int hi, int m,
+namespace {
+
+// The shared memory of a chase window: the recorded rotations always, at
+// most (wb - 2) steps of m, 195 KB at wb = 256, m = 64; the window joins
+// them there when both fit (wb = 128: 129 KB + at most 46 KB).
+size_t chase_list_bytes(const int* p, int m) {
+  return (size_t)max(p[4] - p[3] + 1, 0) * m * (sizeof(float2) + sizeof(float));
+}
+size_t chase_window_bytes(const int* p) {
+  return (size_t)p[2] * (p[2] + 1) * sizeof(float2);
+}
+bool chase_staged(const int* p, int m) {
+  return chase_window_bytes(p) + chase_list_bytes(p, m) <= kMaxChaseSmem;
+}
+
+}  // namespace
+
+// rec: (lane, a, wb, tcur, t_end, lo, hi) a lane; a lane's U takes us
+// elements.  The staged and the unstaged lanes are launched apart.
+extern "C" int torcwa_ms_chase_c64(void* H, int n, void* U, long long us,
+                                   const int* rec, int count, int m,
                                    const void* shifts, void* xy,
-                                   void* stream) {
-  if (m < 1 || m > kMaxM || wb < 1 || wb > kMaxW || a < 0 || a + wb > n)
-    return (int)cudaErrorInvalidValue;
-  // the recorded rotations always live in shared memory: at most (wb - 2)
-  // steps of m, 195 KB at wb = 256, m = 64; the window joins them there
-  // when both fit (wb = 128: 129 KB + at most 46 KB)
-  const size_t list = (size_t)max(t_end - tcur + 1, 0) * m *
-                      (sizeof(float2) + sizeof(float));
-  const size_t win = (size_t)wb * (wb + 1) * sizeof(float2);
-  if (list > kMaxChaseSmem) return (int)cudaErrorInvalidValue;
-  const bool staged = win + list <= kMaxChaseSmem;
-  const size_t smem = (staged ? win : 0) + list;
-  auto kernel = staged ? ms_chase<true> : ms_chase<false>;
-  cudaError_t err = set_smem(kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<1, kChaseThreads, smem, (cudaStream_t)stream>>>(
-      (float2*)H, n, (float2*)U, a, wb, tcur, t_end, lo, hi, m,
-      (const float2*)shifts, (float2*)xy);
-  return (int)cudaGetLastError();
+                                   int* launches, void* stream) {
+  *launches = 0;
+  if (m < 1 || m > kMaxM) return (int)cudaErrorInvalidValue;
+  for (int e = 0; e < count; ++e) {
+    const int* p = rec + (size_t)e * 7;
+    if (p[2] < 1 || p[2] > kMaxW || p[1] < 0 || p[1] + p[2] > n ||
+        chase_list_bytes(p, m) > kMaxChaseSmem)
+      return (int)cudaErrorInvalidValue;
+  }
+  return (int)over_lanes(
+      rec, count, 7, 2, [&](const int* p) { return (int)chase_staged(p, m); },
+      [&](int staged, const Lanes& t) {
+        size_t smem = 0;
+        for (int e = 0; e < t.count; ++e)
+          smem = std::max(smem, (staged ? chase_window_bytes(t.v[e]) : 0) +
+                                    chase_list_bytes(t.v[e], m));
+        auto kernel = staged ? ms_chase<true> : ms_chase<false>;
+        cudaError_t err = set_smem(kernel, smem);
+        if (err != cudaSuccess) return err;
+        kernel<<<t.count, kChaseThreads, smem, (cudaStream_t)stream>>>(
+            (float2*)H, n, (float2*)U, (size_t)us, t, m,
+            (const float2*)shifts, (float2*)xy);
+        return counted(launches);
+      });
 }
 
-// Left on H's columns [cl0, cl1), right on H's rows [rh0, rh1) and on Z's
-// rows [rz0, rz1), one launch; an empty range adds no block.
+namespace {
+
+template <int RT>
+cudaError_t launch_slabs(float2* H, int ldh, float2* Z, int ldz, int n,
+                         int nz, const float2* P, size_t ps, Lanes t,
+                         int* launches, cudaStream_t stream) {
+  int blocks = 0, w = 0;
+  for (int e = 0; e < t.count; ++e) {
+    int* p = t.v[e];
+    const int a = p[1], we = p[2];
+    auto strips = [](int rows) { return (max(rows, 0) + kSlabStrip - 1) /
+                                        kSlabStrip; };
+    p[4] = blocks;
+    p[5] = strips(n - a - we);
+    p[6] = strips(a);
+    p[7] = strips(nz);
+    blocks += p[5] + p[6] + p[7];
+    w = max(w, we);
+  }
+  if (blocks == 0) return cudaSuccess;
+  const size_t smem = ((size_t)w * kSlabLd + 2 * kSlabKT * RT * kSlabTy) *
+                      sizeof(float2);
+  cudaError_t err = set_smem(ms_apply_slabs<RT>, smem);
+  if (err != cudaSuccess) return err;
+  ms_apply_slabs<RT><<<blocks, kSlabThreads, smem, stream>>>(
+      H, ldh, Z, ldz, n, nz, P, ps, t);
+  return counted(launches);
+}
+
+}  // namespace
+
+// rec: (lane, a, w, ldp) a lane: the products of its transform P (w x w) at
+// row a, one launch for the lanes of one register tile (RT = ceil(w / 32)):
+// left on H's columns right of the window, right on H's rows above it and
+// on Z's nz rows.  H is (., n, n) with leading dimension ldh, Z (., nz, n)
+// with ldz, a lane's P lies ps elements after the one before.
 extern "C" int torcwa_ms_apply_slabs_c64(void* H, int ldh, void* Z, int ldz,
-                                         int a, int w, int cl0, int cl1,
-                                         int rh0, int rh1, int rz0, int rz1,
-                                         const void* P, int ldp,
+                                         int n, int nz, const void* P,
+                                         long long ps, const int* rec,
+                                         int count, int* launches,
                                          void* stream) {
-  if (w < 1 || w > kMaxW) return (int)cudaErrorInvalidValue;
-  const Slab sl[3] = {{(float2*)H, ldh, 1, cl0, cl1},
-                      {(float2*)H, ldh, 0, rh0, rh1},
-                      {(float2*)Z, ldz, 0, rz0, rz1}};
-  int nb[3];
-  for (int q = 0; q < 3; ++q)
-    nb[q] = max(sl[q].hi - sl[q].lo, 0) / kSlabStrip +
-            (max(sl[q].hi - sl[q].lo, 0) % kSlabStrip != 0);
-  if (nb[0] + nb[1] + nb[2] == 0) return 0;
+  *launches = 0;
+  for (int e = 0; e < count; ++e) {
+    const int* p = rec + (size_t)e * 4;
+    if (p[2] < 1 || p[2] > kMaxW || p[1] < 0 || p[1] + p[2] > n)
+      return (int)cudaErrorInvalidValue;
+  }
+  float2 *Hc = (float2*)H, *Zc = (float2*)Z;
   const float2* Pc = (const float2*)P;
   cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err;
-  switch ((w + kSlabTy - 1) / kSlabTy) {
-    case 1: err = launch_slabs<1>(sl, nb, a, w, Pc, ldp, st); break;
-    case 2: err = launch_slabs<2>(sl, nb, a, w, Pc, ldp, st); break;
-    case 3: err = launch_slabs<3>(sl, nb, a, w, Pc, ldp, st); break;
-    case 4: err = launch_slabs<4>(sl, nb, a, w, Pc, ldp, st); break;
-    case 5: err = launch_slabs<5>(sl, nb, a, w, Pc, ldp, st); break;
-    case 6: err = launch_slabs<6>(sl, nb, a, w, Pc, ldp, st); break;
-    case 7: err = launch_slabs<7>(sl, nb, a, w, Pc, ldp, st); break;
-    default: err = launch_slabs<8>(sl, nb, a, w, Pc, ldp, st); break;
-  }
-  return (int)err;
+  return (int)over_lanes(
+      rec, count, 4, kMaxW / kSlabTy + 1,
+      [](const int* p) { return (p[2] + kSlabTy - 1) / kSlabTy; },
+      [&](int rt, const Lanes& t) {
+        auto go = [&](auto slabs) {
+          return slabs(Hc, ldh, Zc, ldz, n, nz, Pc, ps, t, launches, st);
+        };
+        switch (rt) {
+          case 1: return go(launch_slabs<1>);
+          case 2: return go(launch_slabs<2>);
+          case 3: return go(launch_slabs<3>);
+          case 4: return go(launch_slabs<4>);
+          case 5: return go(launch_slabs<5>);
+          case 6: return go(launch_slabs<6>);
+          case 7: return go(launch_slabs<7>);
+          default: return go(launch_slabs<8>);
+        }
+      });
 }

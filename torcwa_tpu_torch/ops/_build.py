@@ -32,6 +32,8 @@ LIB_NAME = 'libtorcwa_kernels.so'
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
+_IP = ctypes.POINTER(ctypes.c_int)   # host ints: a lane table, a count out
 # C entry points: name -> argtypes.  Each returns cudaGetLastError().
 _SIGNATURES = {
     'torcwa_hessenberg_c64': [_P, _P, _P, _I, _I, _P],
@@ -48,13 +50,12 @@ _SIGNATURES = {
     'torcwa_tri_vectors_c64': [_P, _P, _P, _P, _I, _I, _P],
     'torcwa_tri_vectors_slots': [_I],
     'torcwa_tri_vectors_block_c64': [_P, _P, _P, _P, _I, _I, _I, _P],
-    'torcwa_ms_band_scan_c64': [_P, _I, _I, _F, _P, _P],
-    'torcwa_ms_aed_c64': [_P, _I, _P, _I, _I, _I, _F, _P, _P, _P],
-    'torcwa_ms_trailing_shifts_c64': [_P, _I, _P, _I, _I, _P, _P],
-    'torcwa_ms_chase_c64': [_P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P,
-                            _P],
-    'torcwa_ms_apply_slabs_c64': [_P, _I, _P, _I, _I, _I, _I, _I, _I, _I,
-                                  _I, _I, _P, _I, _P],
+    'torcwa_ms_band_scan_c64': [_P, _I, _IP, _I, _F, _P, _IP, _P],
+    'torcwa_ms_aed_c64': [_P, _I, _P, _IP, _I, _I, _I, _F, _P, _P, _IP, _P],
+    'torcwa_ms_trailing_shifts_c64': [_P, _I, _P, _IP, _I, _I, _P, _IP, _P],
+    'torcwa_ms_chase_c64': [_P, _I, _P, _L, _IP, _I, _I, _P, _P, _IP, _P],
+    'torcwa_ms_apply_slabs_c64': [_P, _I, _P, _I, _I, _I, _P, _L, _IP, _I,
+                                  _IP, _P],
 }
 
 _lib = None

@@ -8,12 +8,12 @@ Counterpart of the routing in ``torcwa_tpu/ops/eig_qr_real.py``
 * n < ``LARGE_MIN_N``: the batched route, one thread block per matrix:
   ``hessenberg`` -> ``schur_qr`` (single shift) -> ``tri_vectors``
   (``eig_kernels.py``);
-* n >= ``LARGE_MIN_N``: the large-n route, lane by lane:
-  ``hessenberg_blocked`` (compact-WY panels: each panel's column loop one
-  launch of ``csrc/hess_panel.cu``, its end-of-panel update three cuBLAS
-  GEMMs) ->
-  ``schur_ms`` (windowed multishift QR with aggressive early deflation,
-  m = 24 shifts below n = 4200, else 32) -> ``tri_vectors_blocked``.
+* n >= ``LARGE_MIN_N``: the large-n route: ``hessenberg_blocked``
+  lane by lane (compact-WY panels: each panel's column loop one launch of
+  ``csrc/hess_panel.cu``, its end-of-panel update three cuBLAS GEMMs) ->
+  ``schur_ms`` once on the batch, its lanes in lock step (windowed
+  multishift QR with aggressive early deflation, m = 24 shifts below
+  n = 4200, else 32) -> ``tri_vectors_blocked`` lane by lane.
 
 The small route is :func:`eig_small` with the Schur stage passed in:
 ``eig_qr`` passes ``SMALL_SCHUR`` (``schur_qr``), and the stand-alone stages
@@ -98,14 +98,22 @@ def large_shifts(n):
     return 24 if n < 4200 else 32
 
 
-def _eig_large(A):
-    """One (n, n) matrix through the large-n route: (w, V), V = Z Y not
-    yet normalised."""
-    H, Q = hessenberg_blocked(A)
-    T, Z = schur_ms(H, Q, m=large_shifts(A.shape[-1]),
-                    defl_mult=LARGE_DEFL_MULT)
+def _stack(xs):
+    """The (n, n) tensors xs as one (B, n, n); a view of the one for B = 1."""
+    return xs[0][None] if len(xs) == 1 else torch.stack(xs)
+
+
+def _eig_large(A3):
+    """(B, n, n) through the large-n route: (w, V), V = Z Y not yet
+    normalised.  The Hessenberg and vector stages run lane by lane, the
+    Schur stage once over the batch."""
+    lanes = [hessenberg_blocked(a) for a in A3]
+    T, Z = schur_ms(_stack([h for h, _ in lanes]),
+                    _stack([q for _, q in lanes]),
+                    m=large_shifts(A3.shape[-1]), defl_mult=LARGE_DEFL_MULT)
     with timing.span('eig.vectors'):
-        return torch.diagonal(T), Z @ tri_vectors_blocked(T)
+        return (torch.diagonal(T, dim1=-2, dim2=-1),
+                _stack([z @ tri_vectors_blocked(t) for t, z in zip(T, Z)]))
 
 
 def _finish(A3, w, V):
@@ -153,9 +161,7 @@ def eig_qr(A):
     with f32_pinned(), timing.span('eig', n=n, batch=A3.shape[0],
                                    route='large' if large else 'small'):
         if large:
-            lanes = [_eig_large(a) for a in A3]
-            w, V = _finish(A3, torch.stack([l[0] for l in lanes]),
-                           torch.stack([l[1] for l in lanes]))
+            w, V = _finish(A3, *_eig_large(A3))
         else:
             w, V = eig_small(A3)
     return w.reshape(batch + (n,)), V.reshape(batch + (n, n))

@@ -1,8 +1,11 @@
-"""Windowed multishift Schur QR with aggressive early deflation for one
-large Hessenberg matrix: H = Z T Z^H.
+"""Windowed multishift Schur QR with aggressive early deflation for a large
+Hessenberg matrix, or a batch of them, each on its own: H = Z T Z^H.
 
 Counterpart of ``torcwa_tpu/ops/eig_qr_hbm.py`` (``schur_qr_hbm``).  The
-sweep loop runs here on the host, once for both versions:
+sweep loop runs here on the host, once for both versions, over the lanes
+of a batch (its matrices) in lock step: each lane keeps its own active
+block, stall count, budget and decisions, and each step of a sweep is one
+launch over the lanes that take it (:func:`_sweeps`).  A lane's steps:
 
 * the band scan gives the active block [lo, hi];
 * AED on the trailing window of at most ``kw`` rows deflates what it can
@@ -22,15 +25,18 @@ sweep loop runs here on the host, once for both versions:
   window and to Z;
 * 13 sweeps without progress make the next sweep exceptional.
 
-:class:`_CudaOps` launches the functions of ``csrc/schur_ms.cu`` and reads
-five integers back per sweep (the AED window QR's rotations stay on the
-card, summed, for the ``eig.schur`` span's ``aed_rotations`` counter);
+:class:`_CudaOps` launches the functions of ``csrc/schur_ms.cu``, one block
+(or one lane's slab strips) a lane, and reads five integers a lane back per
+sweep, in one read for the batch (the AED window QR's rotations stay on
+the card, summed, for the ``eig.schur`` span's ``aed_rotations`` counter);
 :class:`_PlainOps` is the plain PyTorch version of the same steps,
-rotation by rotation, in the input's precision.  Convention in both: plain
-Q and plain Z (no conjugated accumulators, no transposed storage); a
-rotation G = [[c, s], [-conj(s), c]] acts on rows k, k+1 from the left and
-G^H on columns k, k+1 from the right.
+rotation by rotation, in the input's precision, lane by lane.  Convention
+in both: plain Q and plain Z (no conjugated accumulators, no transposed
+storage); a rotation G = [[c, s], [-conj(s), c]] acts on rows k, k+1 from
+the left and G^H on columns k, k+1 from the right.
 """
+
+import ctypes
 
 import torch
 
@@ -367,47 +373,61 @@ def aed_plain(H, lo, hi, m, kw, mult, exc, uncut_scale=False):
 
 
 class _PlainOps:
-    """The steps of a sweep in plain PyTorch, in place on H and Z.  The AED
-    window (at most kw x kw) is worked on the CPU, the chase and the slab
-    products where H lives."""
+    """The steps of a sweep in plain PyTorch, in place on the lanes of H
+    and Z (B, n, n), one lane after another.  The AED window (at most kw x
+    kw) is worked on the CPU, the chase and the slab products where H
+    lives."""
 
     def __init__(self, H, Z, m, kw, wb, defl_mult):
         self.H, self.Z = H, Z
-        self.n = H.shape[-1]
+        self.lanes, self.n = H.shape[0], H.shape[-1]
         self.m, self.kw, self.wb, self.defl_mult = m, kw, wb, defl_mult
-        self.shifts = None
-        self.Lp = None
-        self.U = None
+        self.shifts = [None] * self.lanes
+        self.Lp = [None] * self.lanes
+        self.U = [None] * self.lanes
         self.xs = self.ys = None
 
-    def scan_and_aed(self, hi_top, exc):
-        lo, hi = band_scan_plain(self.H, hi_top, self.defl_mult)
+    def scan(self, lanes, hi_tops, excs, aed):
+        """Each lane's band scan at or above its hi_top, then its AED (or
+        its shifts from the trailing block without ``aed``): (lo, hi, s,
+        kwe, hi_new) a lane."""
+        one = self._scan_and_aed if aed else self._scan_and_shifts
+        return [one(l, hi_top, exc)
+                for l, hi_top, exc in zip(lanes, hi_tops, excs)]
+
+    def _scan_and_aed(self, l, hi_top, exc):
+        lo, hi = band_scan_plain(self.H[l], hi_top, self.defl_mult)
         if hi <= 0:
             return 0, 0, 0, 0, 0
-        s, kwe, hi_new, self.shifts, self.Lp = aed_plain(
-            self.H, lo, hi, self.m, self.kw, self.defl_mult, exc)
+        s, kwe, hi_new, self.shifts[l], self.Lp[l] = aed_plain(
+            self.H[l], lo, hi, self.m, self.kw, self.defl_mult, exc)
         return lo, hi, s, kwe, hi_new
 
-    def apply_aed(self, s, kwe):
-        ms_apply_window_plain(self.H, self.Z, s, kwe, self.Lp)
-
-    def start_chase(self):
-        self.xs = torch.zeros(self.m, dtype=self.H.dtype, device=self.H.device)
-        self.ys = torch.zeros_like(self.xs)
-
-    def scan_and_shifts(self, hi_top, exc):
-        lo, hi = band_scan_plain(self.H, hi_top, self.defl_mult)
+    def _scan_and_shifts(self, l, hi_top, exc):
+        lo, hi = band_scan_plain(self.H[l], hi_top, self.defl_mult)
         if hi > 0:
-            self.shifts = trailing_shifts_plain(self.H, lo, hi, self.m, exc)
+            self.shifts[l] = trailing_shifts_plain(self.H[l], lo, hi, self.m,
+                                                   exc)
         return lo, hi, 0, 0, hi
 
-    def chase(self, a, wbe, tcur, t_end, lo, hi):
-        self.xs, self.ys, self.U = _chase_window_plain(
-            self.H, self.shifts, self.xs, self.ys, a, wbe, tcur, t_end, lo,
-            hi)
+    def apply_aed(self, items):
+        for l, s, kwe in items:
+            ms_apply_window_plain(self.H[l], self.Z[l], s, kwe, self.Lp[l])
 
-    def apply_window(self, a, wbe):
-        ms_apply_window_plain(self.H, self.Z, a, wbe, self.U)
+    def start_chase(self):
+        self.xs, self.ys = ([torch.zeros(self.m, dtype=self.H.dtype,
+                                         device=self.H.device)
+                             for _ in range(self.lanes)] for _ in range(2))
+
+    def chase(self, items):
+        for l, a, wbe, tcur, t_end, lo, hi in items:
+            self.xs[l], self.ys[l], self.U[l] = _chase_window_plain(
+                self.H[l], self.shifts[l], self.xs[l], self.ys[l], a, wbe,
+                tcur, t_end, lo, hi)
+
+    def apply_window(self, items):
+        for l, a, wbe in items:
+            ms_apply_window_plain(self.H[l], self.Z[l], a, wbe, self.U[l])
 
 
 # ---------------------------------------------------------------------------
@@ -415,18 +435,55 @@ class _PlainOps:
 # ---------------------------------------------------------------------------
 
 def _launch(name, *args):
-    err = getattr(_build.load(), name)(*args, _stream())
+    """One call of a C entry point of csrc/schur_ms.cu; LAUNCHES counts the
+    kernels it reports, one or, for lanes that need other templates or
+    more than 32 lanes, several."""
+    made = ctypes.c_int(0)
+    err = getattr(_build.load(), name)(*args, ctypes.pointer(made),
+                                       _stream())
     _raise_on(name, err)
-    LAUNCHES['schur_ms'] += 1
+    LAUNCHES['schur_ms'] += made.value
+
+
+def _table(rows, buf=None):
+    """A launch's lane table for the C entry points: the rows' ints in a
+    host array (``buf``, a ctypes int array large enough, when given; the
+    C entry point copies the table before it returns), and the number of
+    rows."""
+    rows = list(rows)
+    flat = [v for row in rows for v in row]
+    if buf is None:
+        buf = (ctypes.c_int * len(flat))()
+    buf[:len(flat)] = flat
+    return buf, len(rows)
+
+
+def _chase_call(H, U, us, rows, shifts, xy, buf=None):
+    """The chase kernel on H (., n, n): rows of (lane, a, wbe, tcur, t_end,
+    lo, hi); a lane's U (wbe x wbe) lies us elements after the one before,
+    its shifts (m) and carries xy (2m) in the rows of shifts and xy."""
+    _launch('torcwa_ms_chase_c64', H.data_ptr(), H.shape[-1], U.data_ptr(),
+            us, *_table(rows, buf), shifts.shape[-1], shifts.data_ptr(),
+            xy.data_ptr())
+
+
+def _slab_call(H, Z, n, P, ps, rows, buf=None):
+    """The slab kernel: rows of (lane, a, w, ldp), each the products of
+    its lane's transform P (w x w, leading dimension ldp, ps elements after
+    the lane before) on H (., n, n) and Z (., nz, n), both row-major with
+    their own leading dimension."""
+    _launch('torcwa_ms_apply_slabs_c64', H.data_ptr(), H.stride(-2),
+            Z.data_ptr(), Z.stride(-2), n, Z.shape[-2], P.data_ptr(), ps,
+            *_table(rows, buf))
 
 
 def ms_chase(H, shifts, xy, a, wbe, tcur, t_end, lo, hi, U):
     """Steps tcur..t_end of the chase of m = len(shifts) bulges inside the
     window of ``wbe`` rows at ``a``, in place on H; xy (2m,) holds the
     bulges' carries (x then y) in and out, U (wbe, wbe) receives the
-    window's unitary.  A CUDA tensor goes through the kernel, which forms U
-    after the last step from the rotations it recorded; a CPU tensor
-    through :func:`chase_plain` and :func:`window_unitary_plain`."""
+    window's unitary.  A CUDA tensor goes through the kernel (one lane),
+    which forms U after the last step from the rotations it recorded; a CPU
+    tensor through :func:`chase_plain` and :func:`window_unitary_plain`."""
     m = shifts.shape[0]
     if H.device.type == 'cpu':
         xs, ys, Uw = _chase_window_plain(H, shifts, xy[:m].clone(),
@@ -444,8 +501,7 @@ def ms_chase(H, shifts, xy, a, wbe, tcur, t_end, lo, hi, U):
             or xy.shape != (2 * m,):
         raise ValueError('ms_chase: expected contiguous H, shifts (m,), xy '
                          '(2m,) and U (wbe, wbe) on one device')
-    _launch('torcwa_ms_chase_c64', H.data_ptr(), H.shape[-1], U.data_ptr(),
-            a, wbe, tcur, t_end, lo, hi, m, shifts.data_ptr(), xy.data_ptr())
+    _chase_call(H, U, 0, [(0, a, wbe, tcur, t_end, lo, hi)], shifts, xy)
     return H
 
 
@@ -490,71 +546,78 @@ def ms_apply_window(H, Z, a, w, P):
         raise ValueError('ms_apply_window: expected H (n, n), Z (., n) and '
                          'a window inside H')
     if a + w < n or a > 0 or Z.shape[0] > 0:
-        # column range right of the window, row ranges of H above it and of Z
-        _launch('torcwa_ms_apply_slabs_c64', H.data_ptr(), H.stride(0),
-                Z.data_ptr(), Z.stride(0), a, w, a + w, n, 0, a, 0,
-                Z.shape[0], P.data_ptr(), P.stride(0))
+        _slab_call(H, Z, n, P, 0, [(0, a, w, P.stride(0))])
     return H, Z
 
 
 class _CudaOps:
-    """The steps of a sweep through csrc/schur_ms.cu, in place on H and Z.
-    Scratch (the AED transform, the window unitary, shifts, bulge carries,
-    the info record) is allocated here once; nothing is allocated in C."""
+    """The steps of a sweep through csrc/schur_ms.cu, in place on the lanes
+    of H and Z (B, n, n), one launch a step over the lanes that take it.
+    Each lane's scratch (the AED transform, the window unitary, shifts,
+    bulge carries, the info record) is allocated here once; nothing is
+    allocated in C."""
 
     def __init__(self, H, Z, m, kw, wb, defl_mult):
         if m > _MAX_M or kw > _MAX_KW or wb > _MAX_WB:
             raise ValueError(f'schur_ms: the CUDA kernels take m <= {_MAX_M},'
                              f' kw <= {_MAX_KW}, wb <= {_MAX_WB}')
         self.H, self.Z = H, Z
-        self.n = H.shape[-1]
+        self.lanes, self.n = H.shape[0], H.shape[-1]
         self.m, self.kw, self.wb, self.defl_mult = m, kw, wb, defl_mult
-        dev = H.device
-        self.info = torch.zeros(_I_COUNT, dtype=torch.int32, device=dev)
-        self.Lp = torch.zeros(kw * kw, dtype=H.dtype, device=dev)
-        self.U = torch.zeros(wb * wb, dtype=H.dtype, device=dev)
-        self.shifts = torch.zeros(m, dtype=H.dtype, device=dev)
-        self.xy = torch.zeros(2 * m, dtype=H.dtype, device=dev)
+        dev, B = H.device, self.lanes
+        self.info = torch.zeros(B, _I_COUNT, dtype=torch.int32, device=dev)
+        self.Lp = torch.zeros(B, kw * kw, dtype=H.dtype, device=dev)
+        self.U = torch.zeros(B, wb * wb, dtype=H.dtype, device=dev)
+        self.shifts = torch.zeros(B, m, dtype=H.dtype, device=dev)
+        self.xy = torch.zeros(B, 2 * m, dtype=H.dtype, device=dev)
+        self.buf = (ctypes.c_int * (7 * B))()      # the launches' lane tables
 
-    def scan_and_aed(self, hi_top, exc):
+    def scan(self, lanes, hi_tops, excs, aed):
+        """One band scan launch and one AED (or, without ``aed``, trailing
+        shifts) launch over the lanes, then one read of their info records:
+        (lo, hi, s, kwe, hi_new) a lane."""
         H, n = self.H, self.n
-        _launch('torcwa_ms_band_scan_c64', H.data_ptr(), n, hi_top,
-                self.defl_mult, self.info.data_ptr())
-        _launch('torcwa_ms_aed_c64', H.data_ptr(), n, self.info.data_ptr(),
-                int(exc), self.m, self.kw, self.defl_mult,
-                self.Lp.data_ptr(), self.shifts.data_ptr())
-        lo, hi, s, kwe, hi_new = self.info[:5].tolist()
-        return lo, hi, s, kwe, hi_new
+        _launch('torcwa_ms_band_scan_c64', H.data_ptr(), n,
+                *_table(zip(lanes, hi_tops), self.buf), self.defl_mult,
+                self.info.data_ptr())
+        excs = _table(zip(lanes, excs), self.buf)
+        if aed:
+            _launch('torcwa_ms_aed_c64', H.data_ptr(), n,
+                    self.info.data_ptr(), *excs, self.m, self.kw,
+                    self.defl_mult, self.Lp.data_ptr(),
+                    self.shifts.data_ptr())
+        else:
+            _launch('torcwa_ms_trailing_shifts_c64', H.data_ptr(), n,
+                    self.info.data_ptr(), *excs, self.m,
+                    self.shifts.data_ptr())
+        rows = self.info.tolist()        # whole: one copy, no gather kernel
+        return [rows[l][:5] for l in lanes]
 
     @property
     def aed_rotations(self):
-        """The AED window QR's rotations so far, a 0-d tensor on the card."""
-        return self.info[_I_ROT]
+        """The AED window QR's rotations so far, summed over the lanes, a
+        0-d tensor on the card."""
+        return self.info[:, _I_ROT].sum()
 
-    def scan_and_shifts(self, hi_top, exc):
-        H, n = self.H, self.n
-        _launch('torcwa_ms_band_scan_c64', H.data_ptr(), n, hi_top,
-                self.defl_mult, self.info.data_ptr())
-        _launch('torcwa_ms_trailing_shifts_c64', H.data_ptr(), n,
-                self.info.data_ptr(), int(exc), self.m,
-                self.shifts.data_ptr())
-        lo, hi, s, kwe, hi_new = self.info[:5].tolist()
-        return lo, hi, s, kwe, hi_new
-
-    def apply_aed(self, s, kwe):
-        ms_apply_window(self.H, self.Z, s, kwe,
-                        self.Lp[:kwe * kwe].view(kwe, kwe))
+    def apply_aed(self, items):
+        self._slabs(self.Lp, self.kw * self.kw,
+                    [(l, s, kwe, kwe) for l, s, kwe in items])
 
     def start_chase(self):
         self.xy.zero_()
 
-    def chase(self, a, wbe, tcur, t_end, lo, hi):
-        ms_chase(self.H, self.shifts, self.xy, a, wbe, tcur, t_end, lo, hi,
-                 self.U[:wbe * wbe].view(wbe, wbe))
+    def chase(self, items):
+        _chase_call(self.H, self.U, self.wb * self.wb, items, self.shifts,
+                    self.xy, self.buf)
 
-    def apply_window(self, a, wbe):
-        ms_apply_window(self.H, self.Z, a, wbe,
-                        self.U[:wbe * wbe].view(wbe, wbe))
+    def apply_window(self, items):
+        self._slabs(self.U, self.wb * self.wb,
+                    [(l, a, wbe, wbe) for l, a, wbe in items])
+
+    def _slabs(self, P, ps, rows):
+        """The slab products of each lane's transform in P (lane stride
+        ps): rows of (lane, a, w, ldp)."""
+        _slab_call(self.H, self.Z, self.n, P, ps, rows, self.buf)
 
 
 # ---------------------------------------------------------------------------
@@ -567,11 +630,22 @@ _CFMA, _PAIR = 8, 20
 
 
 def _sweeps(ops, n, m, kw, wb, budget, nibble, aed=True):
-    """Run sweeps until the active block closes or the budget runs out.
-    Returns (hi, sweeps, aed_deflated, skipped_chases, flops_done,
-    flops_needed).  flops_done counts this implementation's work: the slab
-    products exactly (overlapping windows included), a chase rotation as
-    2 wb element pairs (half a window row of H, a row of U, half a window
+    """Run sweeps on every lane of ``ops`` in lock step until each lane's
+    active block closes or its budget runs out.  Returns (stats, steps):
+    for each lane (hi, sweeps, aed_deflated, skipped_chases, flops_done,
+    flops_needed), and the sweeps of the loop, one host read each.
+
+    A sweep of the loop takes every live lane through the same steps, one
+    launch a step over the lanes that take it: the band scan and the AED
+    (one read of the lanes' results), the AED transforms where they
+    deflated, then chase window j of every lane that chases and has one,
+    with its slab products, for j = 0, 1, ...  Each lane's decisions (its
+    active block, exceptional sweeps, the nibble rule, its budget) are its
+    own, so a lane's arithmetic is what it would be alone.
+
+    flops_done counts this implementation's work: the slab products
+    exactly (overlapping windows included), a chase rotation as 2 wb
+    element pairs (half a window row of H, a row of U, half a window
     column), an AED window as 100 kwe^3.  flops_needed is the least
     arithmetic that carries out the same sweeps whatever the windowing:
     every chase rotation applied directly to its 2n element pairs (a row
@@ -580,43 +654,65 @@ def _sweeps(ops, n, m, kw, wb, budget, nibble, aed=True):
     columns and rows.  Without ``aed`` the shifts come from the trailing
     m x m block, nothing deflates beyond the band scan and every sweep
     chases."""
-    scan = ops.scan_and_aed if aed else ops.scan_and_shifts
-    hi_top, it, stall, aed_tot, skip_tot, flops, need = n - 1, 0, 0, 0, 0, 0, 0
-    while hi_top > 0 and it < budget:
-        exc = stall >= EXC_STALL
-        lo, hi_band, s, kwe, hi = scan(hi_top, exc)
-        it += 1
-        if hi_band <= 0:
-            hi_top = 0
-            break
-        flops += 100 * kwe ** 3
-        if hi < hi_band:
-            ops.apply_aed(s, kwe)
-            flops += _CFMA * kwe * kwe * ((n - s - kwe) + s + n)
-            need += _CFMA * kwe * kwe * ((n - s - kwe) + s + n)
-        nibbled = (hi_band - hi) * 100 > nibble * max(kwe, 1) and not exc
-        if hi > lo and not nibbled:
+    B = ops.lanes
+    hi_top = [n - 1] * B
+    it, stall, aed_tot, skip_tot, flops, need = ([0] * B for _ in range(6))
+    live = [l for l in range(B) if hi_top[l] > 0 and budget > 0]
+    steps = 0
+    while live:
+        excs = [stall[l] >= EXC_STALL for l in live]
+        found = ops.scan(live, [hi_top[l] for l in live], excs, aed)
+        steps += 1
+        applied, chases = [], []
+        for l, exc, (lo, hi_band, s, kwe, hi) in zip(live, excs, found):
+            it[l] += 1
+            if hi_band <= 0:
+                hi_top[l] = 0
+                continue
+            flops[l] += 100 * kwe ** 3
+            if hi < hi_band:
+                applied.append((l, s, kwe))
+                flops[l] += _CFMA * kwe * kwe * ((n - s - kwe) + s + n)
+                need[l] += _CFMA * kwe * kwe * ((n - s - kwe) + s + n)
+            nibbled = (hi_band - hi) * 100 > nibble * max(kwe, 1) and not exc
+            if hi > lo and not nibbled:
+                chases.append((l, lo, hi, chase_windows(n, lo, hi, m, wb)))
+                bulges = min(m, (hi - lo - 1) // 2 + 1)
+                flops[l] += _PAIR * 2 * wb * bulges * (hi - lo)
+                need[l] += _PAIR * 2 * n * bulges * (hi - lo)
+            stall[l] = 0 if (hi < hi_top[l] or exc) else stall[l] + 1
+            aed_tot[l] += hi_band - hi
+            skip_tot[l] += int(nibbled)
+            hi_top[l] = hi
+        if applied:
+            ops.apply_aed(applied)
+        if chases:
             ops.start_chase()
-            bulges = min(m, (hi - lo - 1) // 2 + 1)
-            flops += _PAIR * 2 * wb * bulges * (hi - lo)
-            need += _PAIR * 2 * n * bulges * (hi - lo)
-            for a, wbe, tcur, t_end in chase_windows(n, lo, hi, m, wb):
-                ops.chase(a, wbe, tcur, t_end, lo, hi)
-                ops.apply_window(a, wbe)
-                flops += _CFMA * wbe * wbe * ((n - a - wbe) + a + n)
-        stall = 0 if (hi < hi_top or exc) else stall + 1
-        aed_tot += hi_band - hi
-        skip_tot += int(nibbled)
-        hi_top = hi
-    return hi_top, it, aed_tot, skip_tot, flops, need
+        while chases:
+            # window j of every lane that still has one
+            step, left = [], []
+            for l, lo, hi, windows in chases:
+                w = next(windows, None)
+                if w is not None:
+                    step.append((l, *w, lo, hi))
+                    left.append((l, lo, hi, windows))
+            chases = left
+            if step:
+                ops.chase(step)
+                ops.apply_window([(l, a, wbe) for l, a, wbe, *_ in step])
+                for l, a, wbe, *_ in step:
+                    flops[l] += _CFMA * wbe * wbe * ((n - a - wbe) + a + n)
+        live = [l for l in live if hi_top[l] > 0 and it[l] < budget]
+    stats = list(zip(hi_top, it, aed_tot, skip_tot, flops, need))
+    return stats, steps
 
 
 def _check_args(H, Q, m, kw, wb, aed):
-    if H.dim() != 2 or H.shape[0] != H.shape[1] or H.shape != Q.shape \
-            or not H.is_complex() or H.dtype != Q.dtype \
-            or H.device != Q.device:
-        raise ValueError('schur_ms: expected two complex (n, n) matrices of '
-                         'one type on one device')
+    if H.dim() not in (2, 3) or H.shape[-1] != H.shape[-2] \
+            or H.shape != Q.shape or not H.is_complex() \
+            or H.dtype != Q.dtype or H.device != Q.device:
+        raise ValueError('schur_ms: expected two complex (n, n) or (B, n, n) '
+                         'arrays of one type on one device')
     if wb <= _overlap(m):
         raise ValueError(f'window {wb} too small for {m} bulges '
                          f'(stride {wb - _overlap(m)} <= 0)')
@@ -625,20 +721,30 @@ def _check_args(H, Q, m, kw, wb, aed):
                          f'(got {kw})')
 
 
+def _lanes(X):
+    """X as a batch: (n, n) -> (1, n, n), a view."""
+    return X[None] if X.dim() == 2 else X
+
+
 def run_sweeps(H, Z, budget, plain=False, m=24, kw=AED_KW, wb=None,
                defl_mult=4.0, nibble=NIBBLE, aed=True):
-    """At most ``budget`` sweeps in place on H and Z: the kernels for CUDA
-    tensors, the plain version for CPU tensors or when ``plain``.  Returns
-    the stats of :func:`_sweeps`; H stays a unitary similarity of its
-    input, upper Hessenberg with the rows below hi triangular."""
+    """At most ``budget`` sweeps in place on H and Z, (n, n) or (B, n, n)
+    with the lanes in lock step: the kernels for CUDA tensors, the plain
+    version for CPU tensors or when ``plain``.  Returns the stats of
+    :func:`_sweeps`, a list of one tuple a lane for a batch; H stays a
+    unitary similarity of its input, upper Hessenberg with the rows below
+    hi triangular."""
     wb = window(m) if wb is None else wb
-    return _sweeps(_ops(H, Z, plain, m, kw, wb, defl_mult), H.shape[-1], m,
-                   kw, wb, budget, nibble, aed)
+    stats, _ = _sweeps(_ops(_lanes(H), _lanes(Z), plain, m, kw, wb,
+                            defl_mult), H.shape[-1], m, kw, wb, budget,
+                       nibble, aed)
+    return stats[0] if H.dim() == 2 else stats
 
 
 def _ops(H, Z, plain, m, kw, wb, defl_mult):
-    """The steps of a sweep on H and Z: the kernels for CUDA tensors, the
-    plain version for CPU tensors or when ``plain``."""
+    """The steps of a sweep on the lanes of H and Z (B, n, n): the kernels
+    for CUDA tensors, the plain version for CPU tensors or when
+    ``plain``."""
     if not plain and H.device.type != 'cpu':
         if H.device.type != 'cuda':
             raise RuntimeError(f'schur_ms: no kernel for device '
@@ -653,10 +759,15 @@ def _ops(H, Z, plain, m, kw, wb, defl_mult):
     return _PlainOps(H, Z, m, kw, wb, defl_mult)
 
 
-def _finish(H, Z, stats, return_stats):
+def _finish(H, Z, stats, return_stats, one):
+    """T = triu(H), NaN on the diagonal of each lane that did not converge;
+    the first lane alone when ``one``."""
     T = torch.triu(H)
-    if stats[0] > 0:
-        T.diagonal().fill_(float('nan'))
+    for l, st in enumerate(stats):
+        if st[0] > 0:
+            T[l].diagonal().fill_(float('nan'))
+    if one:
+        T, Z, stats = T[0], Z[0], stats[0]
     if return_stats:
         return T, Z, stats
     return T, Z
@@ -669,42 +780,48 @@ def schur_ms_plain(H, Q, m=24, kw=AED_KW, wb=None, defl_mult=4.0,
     wb = window(m) if wb is None else wb
     _check_args(H, Q, m, kw, wb, aed)
     n = H.shape[-1]
-    H, Z = H.clone(), Q.clone()
+    H3, Z3 = _lanes(H).clone(), _lanes(Q).clone()
     if budget is None:
         budget = max_sweeps(n, m, max_iter_factor)
-    stats = run_sweeps(H, Z, budget, True, m, kw, wb, defl_mult, nibble,
-                       aed)
-    return _finish(H, Z, stats, return_stats)
+    stats, _ = _sweeps(_PlainOps(H3, Z3, m, kw, wb, defl_mult), n, m, kw, wb,
+                       budget, nibble, aed)
+    return _finish(H3, Z3, stats, return_stats, H.dim() == 2)
 
 
 def schur_ms(H, Q, m=24, kw=AED_KW, wb=None, defl_mult=4.0,
              max_iter_factor=MAX_ITER_FACTOR, nibble=NIBBLE, aed=True,
              budget=None, return_stats=False):
-    """Schur form of one Hessenberg H with its Q: (T, Z), H = Z T Z^H.
+    """Schur form of a Hessenberg H with its Q: (T, Z), H = Z T Z^H; or of
+    a batch (B, n, n) of them, each matrix on its own, the lanes through
+    each sweep in lock step (:func:`_sweeps`).
 
-    ``budget`` sweeps at most (default ``(max_iter_factor n) // m + 8 m +
-    40``); when it runs out the eigenvalues (the diagonal of T) are NaN.
-    With ``return_stats`` also returns (hi, sweeps, AED-deflated,
-    skipped chases, flops done, flops needed), hi == 0 meaning converged
-    (see :func:`_sweeps` for the two counts).  ``wb`` is the chase window,
-    by default :func:`window` of m; windows start at multiples of ``ALIGN``
-    and advance by wb less the overlap m bulges need.  ``aed=False`` takes
-    the sweep's shifts from the trailing m x m block instead of the AED
-    window (eig_qr_hbm.py's aed=False branch).  A CUDA tensor goes
-    through the kernels of ``csrc/schur_ms.cu`` (complex64 only), a CPU
-    tensor through the plain version."""
+    ``budget`` sweeps at most a lane (default ``(max_iter_factor n) // m +
+    8 m + 40``); when it runs out the lane's eigenvalues (the diagonal of T)
+    are NaN.  With ``return_stats`` also returns (hi, sweeps, AED-deflated,
+    skipped chases, flops done, flops needed), a list of one a lane for a
+    batch, hi == 0 meaning converged (see :func:`_sweeps` for the two
+    counts).  ``wb`` is the chase window, by default :func:`window` of m;
+    windows start at multiples of ``ALIGN`` and advance by wb less the
+    overlap m bulges need.  ``aed=False`` takes the sweep's shifts from the
+    trailing m x m block instead of the AED window (eig_qr_hbm.py's
+    aed=False branch).  A CUDA tensor goes through the kernels of
+    ``csrc/schur_ms.cu`` (complex64 only), a CPU tensor through the plain
+    version.  The ``eig.schur`` span counts the lanes' sweeps added
+    together (``sweeps``), the lanes (``matrices``) and the loop's sweeps
+    (``lockstep_sweeps``, one host read each)."""
     wb = window(m) if wb is None else wb
     _check_args(H, Q, m, kw, wb, aed)
     n = H.shape[-1]
     with timing.span('eig.schur') as sp:
-        H, Z = H.contiguous().clone(), Q.contiguous().clone()
+        H3, Z3 = _lanes(H).contiguous().clone(), _lanes(Q).contiguous().clone()
         if budget is None:
             budget = max_sweeps(n, m, max_iter_factor)
-        ops = _ops(H, Z, False, m, kw, wb, defl_mult)
-        stats = _sweeps(ops, n, m, kw, wb, budget, nibble, aed)
+        ops = _ops(H3, Z3, False, m, kw, wb, defl_mult)
+        stats, steps = _sweeps(ops, n, m, kw, wb, budget, nibble, aed)
         if sp is not None:
-            sp.count('sweeps', stats[1])
-            sp.count('matrices', 1)
+            sp.count('sweeps', sum(st[1] for st in stats))
+            sp.count('matrices', len(stats))
+            sp.count('lockstep_sweeps', steps)
             if aed and isinstance(ops, _CudaOps):
                 sp.count('aed_rotations', ops.aed_rotations)
-        return _finish(H, Z, stats, return_stats)
+        return _finish(H3, Z3, stats, return_stats, H.dim() == 2)
